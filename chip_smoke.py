@@ -5,11 +5,23 @@
 
 Builds the port's CUDA kernels (one nvcc call), holds each kernel
 against its plain PyTorch version at the serving shapes, loads the
-flagship checkpoint (checkpoints/tsh_r5_5k_best.npz) and drives the
-serving path through `StreamingEngine`: 4 streams in float32 on the GPU
-against the same engine on the CPU, then 64 streams in bf16 with the
-int8 K/V ring, counting the kernel launches. Then it times the engine
-step and each kernel with CUDA events.
+flagship checkpoint (checkpoints/tsh_r5_5k_best.npz) and drives each
+path through the entry points a user calls, with every launch count set
+to 0 just before the path and read just after:
+  * `StreamingEngine` with the int8 K/V ring: 4 streams in float32 on
+    the GPU against the same engine on the CPU, then 64 streams in bf16;
+  * `StreamingEngine` with the float K/V ring (the default precision):
+    4 streams in float32 on the GPU against the CPU, 64 streams with a
+    float32 ring, with a bf16 ring under bf16 compute, and with a bf16
+    ring under float32 compute;
+  * `Net.predict` / `Net.forward`, the full-utterance forward: the
+    streamed engine output equals the full forward on the card, and the
+    GPU full forward equals the CPU one;
+  * `local_attention_step_ring_int8`, the op entry of the int8 ring
+    attention kernel, on the head-major serving rows.
+Then it times each kernel, its plain version and, where one exists,
+the one PyTorch call that computes the same function, with CUDA events;
+and the engine step at each ring and one full forward.
 
 Every phase prints its elapsed seconds and has a time limit; a failed
 phase prints its traceback and exits 1 before the result. The last
@@ -54,6 +66,22 @@ TOL_RING_BF16 = 2e-2          # atol: one bf16 rounding of |out| <~ 4
 # a .5 rounding boundary may flip by one, in at most 1 of 1000 written
 TOL_PATH = 1e-4
 TOL_STATE = 1e-4
+# ring attention kernel vs its plain version: float32 over a float ring
+# atol 1e-4 (the JAX package's Pallas-step bound at the flagship
+# shapes, tests/test_serve.py), float32 over an int8 ring rtol/atol
+# 2e-5 (tests/test_attention.py), a bf16 q or ring atol 2e-2 (one bf16
+# rounding of |out| up to ~4)
+TOL_ATTN_F32 = 1e-4
+TOL_ATTN_INT8 = 2e-5
+TOL_ATTN_BF16 = 2e-2
+# streamed engine vs full forward on the card, float32: atol 1e-4 (the
+# JAX package's bound for the same relation, tests/test_serve.py)
+TOL_STREAMED = 1e-4
+FLOAT_PATH_STEPS = 12         # the f32-compute + bf16-ring path
+OP_RING_STEPS = 12            # the op-level int8 ring path
+FULL_SECONDS = 5.0
+# head-major rows of the float ring at 64 streams: 64 x 4 heads
+ATTN = dict(rows=STREAMS * 4, w1=49, dk=97 * 6, dv=97 * 16)
 
 
 def log(msg: str) -> None:
@@ -150,6 +178,18 @@ def profile_steps(eng, xs, torch) -> dict:
                 device_busy_ms=busy / n / 1e3, busy_share=busy / window)
 
 
+def attn_bound(b, w1, dk, dv, q_bytes, kv_bytes, scaled):
+    """(bound ms, bound_by, MB) of one ring attention step: every input
+    read once and the output written once, against the float32 FMA
+    rate for the scores, softmax and weighted sum."""
+    nbytes = (q_bytes * b * (2 * dk + 2 * dv) + kv_bytes * b * w1 * (dk + dv)
+              + (2 * 4 * b * w1 if scaled else 0))
+    flops = 2 * b * (w1 + 1) * (dk + dv) + 5 * b * (w1 + 1)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -159,6 +199,10 @@ def main() -> int:
     try:
         from lookoncetohear_tpu_torch import _build
         from lookoncetohear_tpu_torch.models.net import Net
+        from lookoncetohear_tpu_torch.ops.attention import \
+            local_attention_step_ring_int8
+        from lookoncetohear_tpu_torch.ops.attn_step import (
+            VARIANTS, attention_step_cuda, attention_step_reference)
         from lookoncetohear_tpu_torch.ops.bilstm_scan import (
             bilstm_scan_cuda, bilstm_scan_reference)
         from lookoncetohear_tpu_torch.ops.ring_step import (
@@ -176,11 +220,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    res: dict = {"bilstm_scan": {}, "ring_int8_step": {}}
+    attn_names = list(VARIANTS.values())
+    res: dict = {k: {} for k in ["bilstm_scan", "ring_int8_step"]
+                 + attn_names}
+    launch_counts: dict = {}
 
     def gpu(a, dtype=None):
         t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         return t if dtype is None else t.to(dtype)
+
+    def reset_counts():
+        bilstm_scan_cuda.launches = 0
+        ring_attend_int8_step_cuda.launches = 0
+        attention_step_cuda.launches = 0
+        for k in attn_names:
+            attention_step_cuda.variant_launches[k] = 0
+
+    def read_counts():
+        return dict(bilstm_scan=bilstm_scan_cuda.launches,
+                    ring_int8_step=ring_attend_int8_step_cuda.launches,
+                    **attention_step_cuda.variant_launches)
+
+    def expect_counts(got, want, what):
+        """Every kernel in `want` launched exactly that often, every
+        other kernel not at all."""
+        for k, v in got.items():
+            if v != want.get(k, 0):
+                raise AssertionError(f"{what}: {k} launched {v} times, "
+                                     f"want {want.get(k, 0)}")
 
     # ---- 1. device ----------------------------------------------------
     def device():
@@ -202,7 +269,7 @@ def main() -> int:
             f"{b.get('command', b['path'])}")
         for line in b["ptxas"]:
             log(f"  {line}")
-    phase("build", 240, build)
+    phase("build", 120, build)
 
     # ---- 3. BiLSTM kernel vs plain ------------------------------------
     def lstm_check():
@@ -223,7 +290,7 @@ def main() -> int:
                 raise AssertionError(f"bilstm_scan differs: {err}")
             errs.append(err)
         res["bilstm_scan"]["max_abs_err"] = max(errs)
-    phase("bilstm_scan vs plain", 60, lstm_check)
+    phase("bilstm_scan vs plain", 30, lstm_check)
 
     # ---- 4. int8 ring step kernel vs plain ------------------------------
     b, f, nh, e, vd, wp, w = STREAMS, 97, 4, 6, 16, 56, 50
@@ -272,9 +339,54 @@ def main() -> int:
                 f"bit-exact; max|out diff| = {err:.3e} ({tol})")
             errs.append(err)
         res["ring_int8_step"]["max_abs_err"] = max(errs)
-    phase("ring_int8_step vs plain", 90, ring_check)
+    phase("ring_int8_step vs plain", 45, ring_check)
 
-    # ---- 5. the serving path ------------------------------------------
+    # ---- 5. ring attention kernel (B3, B4) vs plain ---------------------
+    def attn_inputs(rows, qdt, kvdt, seed):
+        """q/k_t/v_t and a ring of ATTN's widths; an int8 ring gets
+        per-(row, slot) scales."""
+        g = np.random.default_rng(seed)
+        w1, adk, adv = ATTN["w1"], ATTN["dk"], ATTN["dv"]
+        a = [gpu(g.standard_normal(s).astype(np.float32), qdt)
+             for s in ((rows, adk), (rows, adk), (rows, adv))]
+        if kvdt == torch.int8:
+            a += [gpu(g.integers(-127, 128, (rows, w1, d)).astype(np.int8))
+                  for d in (adk, adv)]
+            sc = {k: gpu(g.uniform(1e-3, 2e-2, (rows, w1)).astype(np.float32))
+                  for k in ("k_scale", "v_scale")}
+        else:
+            a += [gpu(g.standard_normal((rows, w1, d)).astype(np.float32),
+                      kvdt) for d in (adk, adv)]
+            sc = {}
+        return a, sc
+
+    def attn_check():
+        for i, ((qdt, kvdt), name) in enumerate(VARIANTS.items()):
+            errs = []
+            for rows in (ATTN["rows"], 5):   # the serving rows, a ragged count
+                a, sc = attn_inputs(rows, qdt, kvdt, 100 + 10 * i + rows)
+                got = attention_step_cuda(*a, **sc)
+                want = attention_step_reference(*a, **sc)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if qdt == kvdt == torch.float32:
+                    ok, tol = err <= TOL_ATTN_F32, f"atol {TOL_ATTN_F32}"
+                elif qdt == torch.float32 and kvdt == torch.int8:
+                    torch.testing.assert_close(got, want, rtol=TOL_ATTN_INT8,
+                                               atol=TOL_ATTN_INT8)
+                    ok, tol = True, f"rtol/atol {TOL_ATTN_INT8}"
+                else:
+                    ok, tol = err <= TOL_ATTN_BF16, f"atol {TOL_ATTN_BF16}"
+                if not (ok and got.dtype == qdt
+                        and tuple(got.shape) == (rows, ATTN["dv"])):
+                    raise AssertionError(f"{name} rows={rows}: {err}")
+                log(f"  {name} rows={rows} x {ATTN['w1']} slots: "
+                    f"max|kernel - plain| = {err:.3e} ({tol})")
+                errs.append(err)
+            res[name]["max_abs_err"] = max(errs)
+    phase("attn_step vs plain", 60, attn_check)
+
+    # ---- 6. the paths ---------------------------------------------------
     def load():
         sd = params_from_jax(load_npz(CKPT))
         net = Net(**FLAGSHIP, device="cpu")
@@ -282,7 +394,7 @@ def main() -> int:
         log(f"  {CKPT}: {len(sd)} tensors, "
             f"{sum(v.numel() for v in sd.values())} params")
         return sd, net
-    sd, net = phase("load checkpoint", 60, load)
+    sd, net = phase("load checkpoint", 30, load)
     emb = rng.standard_normal((STREAMS, 256)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     t_ax = np.arange(PATH_STEPS * 128) / 16000.0
@@ -307,17 +419,19 @@ def main() -> int:
             for k in sorted(blk):
                 yield f"blocks.{i}.{k}", blk[k]
 
-    def path_vs_cpu():
+    def path_vs_cpu(kv_dtype, kernel):
         """Every step starts both engines from the CPU engine's state,
         so int8 flips of one step do not compound into the next."""
         n, steps = 4, 6
         engines = [StreamingEngine(net, sd, max_streams=n,
-                                   dtype=torch.float32, device=d)
+                                   dtype=torch.float32, kv_dtype=kv_dtype,
+                                   device=d)
                    for d in ("cuda", "cpu")]
         for eng in engines:
             for s in range(n):
                 eng.add_stream(s, emb[s])
         worst, flips, peak = 0.0, 0, 0.0
+        reset_counts()
         for x in chunks_of(n, steps, 1):
             for (_, g), (_, c) in zip(*map(state_leaves, engines)):
                 g.copy_(c)
@@ -344,55 +458,152 @@ def main() -> int:
                         raise AssertionError(f"{name}: state differs")
                 elif not torch.equal(g, c):
                     raise AssertionError(f"{name}: cursor differs")
+        expect_counts(read_counts(), {"bilstm_scan": 3 * steps,
+                                      kernel: 3 * steps}, "GPU engine")
         if peak == 0.0:
             raise AssertionError("engine output is all zeros")
-        log(f"  4 streams x {steps} steps, float32, int8 K/V, each step "
+        ring = "int8" if kv_dtype == torch.int8 else "float32"
+        log(f"  4 streams x {steps} steps, float32, {ring} K/V, each step "
             f"from the same state: max|GPU - CPU| / peak = {worst:.3e} "
             f"(tolerance {TOL_PATH}); float state within {TOL_STATE}; "
             f"{flips} int8 ring entries off by one in {steps} steps")
-    phase("path: GPU engine vs CPU engine", 200, path_vs_cpu)
+    phase("path: GPU engine vs CPU engine", 90,
+          lambda: path_vs_cpu(torch.int8, "ring_int8_step"))
+    phase("path: f32-ring GPU engine vs CPU engine", 90,
+          lambda: path_vs_cpu(None, "attn_step_f32"))
 
-    eng = StreamingEngine(net, sd, max_streams=STREAMS, dtype=torch.bfloat16,
-                          kv_dtype=torch.int8)
-    xs = torch.from_numpy(chunks_of(STREAMS, PATH_STEPS, 2)).to(
-        dev, torch.bfloat16)
-    launch_counts = {}
+    def streamed_vs_full():
+        """The engine emits each chunk one step late (it waits for the
+        next chunk's lookahead): engine chunk k == full chunk k-1. The
+        GPU full forward also runs against the CPU one."""
+        n, n_chunks, c = 2, 12, 128
+        x = chunks_of(n, n_chunks, 3).transpose(1, 2, 0, 3).reshape(
+            n, 2, n_chunks * c)
+        eng = StreamingEngine(net, sd, max_streams=n)
+        for s in range(n):
+            eng.add_stream(s, emb[s])
+        streamed = torch.cat([eng.step(x[..., i * c:(i + 1) * c])
+                              for i in range(n_chunks)], -1).cpu().numpy()
+        net_gpu = Net(**FLAGSHIP)
+        net_gpu.load_state_dict(sd)
+        e = torch.from_numpy(emb[:n])
+        full_gpu, _ = net_gpu.predict(gpu(x), e.to(dev),
+                                      net_gpu.init_state(n), pad=False)
+        full_cpu, _ = net.predict(torch.from_numpy(x), e, net.init_state(n),
+                                  pad=False)
+        full_gpu, full_cpu = full_gpu.cpu().numpy(), full_cpu.numpy()
+        m = n_chunks * c - c
+        err = float(np.abs(streamed[..., c:] - full_gpu[..., :m]).max())
+        peak = float(np.abs(full_cpu).max())
+        err_cpu = float(np.abs(full_gpu - full_cpu).max())
+        if not (full_gpu.shape == (n, 2, m) and np.isfinite(full_gpu).all()
+                and peak > 0 and err <= TOL_STREAMED
+                and err_cpu <= TOL_PATH * peak):
+            raise AssertionError(f"streamed vs full {err}, GPU vs CPU full "
+                                 f"{err_cpu} (peak {peak})")
+        log(f"  {n} streams x {n_chunks} chunks, float32 ring: max|engine "
+            f"chunk k - full chunk k-1| = {err:.3e} (atol {TOL_STREAMED}); "
+            f"max|GPU full - CPU full| / peak = {err_cpu / peak:.3e} "
+            f"(tolerance {TOL_PATH})")
+    phase("path: streamed == full forward on the card", 90,
+          streamed_vs_full)
 
-    def path_64():
+    xs = torch.from_numpy(chunks_of(STREAMS, PATH_STEPS, 2)).to(dev)
+    engines = {}
+
+    def path_64(label, dtype, kv_dtype, kernel, steps):
+        eng = StreamingEngine(net, sd, max_streams=STREAMS, dtype=dtype,
+                              kv_dtype=kv_dtype)
         for s in range(STREAMS):
             eng.add_stream(s, emb[s])
-        bilstm_scan_cuda.launches = 0
-        ring_attend_int8_step_cuda.launches = 0
-        outs = [eng.step(x) for x in xs]
+        x = xs.to(dtype)
+        reset_counts()
+        outs = [eng.step(x[i]) for i in range(steps)]
         torch.cuda.synchronize()
-        launch_counts["bilstm_scan"] = bilstm_scan_cuda.launches
-        launch_counts["ring_int8_step"] = ring_attend_int8_step_cuda.launches
+        counts = read_counts()
         y = torch.stack(outs).float()
-        want = 3 * PATH_STEPS
-        if not (tuple(y.shape) == (PATH_STEPS, STREAMS, 2, 128)
+        if not (tuple(y.shape) == (steps, STREAMS, 2, 128)
                 and torch.isfinite(y).all()):
             raise AssertionError(f"bad output {tuple(y.shape)}")
         if y[1:].abs().max().item() == 0.0:
             raise AssertionError("engine output is all zeros")
-        for k, v in launch_counts.items():
-            if v != want:
-                raise AssertionError(f"{k}: {v} launches, want {want}")
-        log(f"  {STREAMS} streams x {PATH_STEPS} steps, bf16 + int8 K/V: "
-            f"finite, peak |y| {y.abs().max().item():.3f}; launches "
-            f"{launch_counts} (3 blocks x {PATH_STEPS} steps each)")
-    phase("path: 64-stream bf16 engine", 150, path_64)
+        expect_counts(counts, {"bilstm_scan": 3 * steps, kernel: 3 * steps},
+                      label)
+        launch_counts[kernel] = counts[kernel]
+        launch_counts.setdefault("bilstm_scan", counts["bilstm_scan"])
+        engines[label] = (eng, x)
+        log(f"  {STREAMS} streams x {steps} steps, {label}: finite, peak "
+            f"|y| {y.abs().max().item():.3f}; launches: bilstm_scan "
+            f"{counts['bilstm_scan']}, {kernel} {counts[kernel]} (3 blocks "
+            f"x {steps} steps each, no other kernel)")
+    phase("path: 64-stream bf16 engine", 75, lambda: path_64(
+        "bf16 + int8 K/V", torch.bfloat16, torch.int8, "ring_int8_step",
+        PATH_STEPS))
+    phase("path: 64-stream f32 ring", 75, lambda: path_64(
+        "float32 ring", torch.float32, None, "attn_step_f32", PATH_STEPS))
+    phase("path: 64-stream bf16 ring", 75, lambda: path_64(
+        "bf16 ring", torch.bfloat16, None, "attn_step_bf16", PATH_STEPS))
+    phase("path: 64-stream f32 + bf16 ring", 45, lambda: path_64(
+        "float32 + bf16 ring", torch.float32, torch.bfloat16,
+        "attn_step_f32_bf16kv", FLOAT_PATH_STEPS))
 
-    # ---- 6. times (CUDA events) ----------------------------------------
-    def times():
-        for x in xs[:10]:                       # warm-up
-            eng.step(x)
-        step_ms = wall_ms(lambda i: eng.step(xs[i % PATH_STEPS]),
+    def op_ring_int8():
+        """The op entry of the int8 ring attention kernel on the
+        head-major serving rows, against the same op on a CPU copy from
+        the same state: ring and cursor bit-exact, out as in phase 5."""
+        rows, w1 = ATTN["rows"], ATTN["w1"]
+        for qdt, name in ((torch.float32, "attn_step_f32_int8kv"),
+                          (torch.bfloat16, "attn_step_bf16_int8kv")):
+            a, sc = attn_inputs(rows, qdt, torch.int8, 7)
+            ring = [a[3], sc["k_scale"], a[4], sc["v_scale"],
+                    torch.tensor(w1 - 3, dtype=torch.int32, device=dev)]
+            g = np.random.default_rng(8)
+            worst = 0.0
+            reset_counts()
+            for _ in range(OP_RING_STEPS):
+                q, kt, vt = (gpu(g.standard_normal(t.shape).astype(
+                    np.float32), qdt) for t in a[:3])
+                ring_cpu = [t.to("cpu", copy=True) for t in ring]
+                out, *ring = local_attention_step_ring_int8(q, kt, vt, *ring)
+                out_cpu, *ring_cpu = local_attention_step_ring_int8(
+                    q.cpu(), kt.cpu(), vt.cpu(), *ring_cpu)
+                for t, c in zip(ring, ring_cpu):
+                    if not torch.equal(t.cpu(), c):
+                        raise AssertionError(f"{name}: ring differs")
+                err = (out.float().cpu() - out_cpu.float()).abs().max().item()
+                tol = TOL_ATTN_INT8 * (1 + out_cpu.float().abs().max().item()) \
+                    if qdt == torch.float32 else TOL_ATTN_BF16
+                if not err <= tol:
+                    raise AssertionError(f"{name}: out differs {err}")
+                worst = max(worst, err)
+            counts = read_counts()
+            expect_counts(counts, {name: OP_RING_STEPS}, name)
+            launch_counts[name] = counts[name]
+            if int(ring[-1]) != (w1 - 3 + OP_RING_STEPS) % w1:
+                raise AssertionError(f"cursor {int(ring[-1])}")
+            log(f"  {rows} rows x {w1} int8 slots, {str(qdt)[6:]} q, "
+                f"{OP_RING_STEPS} steps through the wrap: ring, scales and "
+                f"cursor bit-exact with the CPU op, max|out diff| "
+                f"{worst:.3e}; {name} launched {counts[name]} times")
+    phase("path: int8 op ring (B4)", 45, op_ring_int8)
+
+    # ---- 7. times (CUDA events) ----------------------------------------
+    def engine_times(label):
+        eng, x = engines[label]
+        for i in range(10):                     # warm-up
+            eng.step(x[i])
+        step_ms = wall_ms(lambda i: eng.step(x[i % PATH_STEPS]),
                           TIMED_STEPS, torch)
-        log(f"  engine step, {STREAMS} streams bf16 + int8 K/V, eager: "
-            f"median {step_ms:.3f} ms from call to synchronize "
-            f"({TIMED_STEPS} steps), RTF {step_ms / CHUNK_MS:.4f} [{smi}]")
-        res["engine"] = dict(step_ms=step_ms, rtf=step_ms / CHUNK_MS)
-        res["engine"].update(profile_steps(eng, xs[:10], torch))
+        log(f"  engine step, {STREAMS} streams {label}, eager: median "
+            f"{step_ms:.3f} ms from call to synchronize ({TIMED_STEPS} "
+            f"steps), RTF {step_ms / CHUNK_MS:.4f} [{smi}]")
+        out = dict(step_ms=step_ms, rtf=step_ms / CHUNK_MS)
+        out.update(profile_steps(eng, x[:10], torch))
+        return out
+
+    def times():
+        res["engine"] = {label: engine_times(label) for label in
+                         ("bf16 + int8 K/V", "float32 ring", "bf16 ring")}
 
         # BiLSTM at the path's shape: xp [97, 2, 64, 256] f32
         t_, bb, h = 97, STREAMS, 64
@@ -407,10 +618,10 @@ def main() -> int:
         lstm = torch.nn.LSTM(64, h, batch_first=True,
                              bidirectional=True).to(dev)
         with torch.no_grad():
-            for sfx, tsfx in (("_l0", "_l0"), ("_l0_reverse", "_l0_reverse")):
+            for sfx in ("_l0", "_l0_reverse"):
                 for a, tn in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
                               ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
-                    getattr(lstm, tn + tsfx).copy_(
+                    getattr(lstm, tn + sfx).copy_(
                         sd[f"tfgridnet.blocks.0.intra_rnn.{a}{sfx}"])
             x_in = gpu(rng.standard_normal((bb, t_, 64)).astype(np.float32))
             for _ in range(5):
@@ -429,8 +640,8 @@ def main() -> int:
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP f32), plain "
             f"{p_ms * 1e3:.1f} us, cuDNN nn.LSTM {l_ms * 1e3:.1f} us [{smi}]")
 
-        # ring step at the path's shapes, bf16 q/k/v, three rings (one
-        # per block) so the 92 MB do not sit in the 50 MB L2
+        # int8 ring step at the path's shapes, bf16 q/k/v, three rings
+        # (one per block) so the 92 MB do not sit in the 50 MB L2
         rings = [ring_inputs(torch.bfloat16) for _ in range(3)]
         poss = [torch.tensor(7, dtype=torch.int32, device=dev)
                 for _ in range(3)]
@@ -459,22 +670,86 @@ def main() -> int:
             f"bound {res['ring_int8_step']['bound_ms'] * 1e3:.2f} us "
             f"({nbytes / 1e6:.1f} MB over {live} live slots), plain "
             f"{p_ms * 1e3:.1f} us [{smi}]")
-    phase("times", 180, times)
 
+        # ring attention step at the float ring's serving shape (256
+        # head-major rows x 49 slots), each instantiation; three input
+        # sets, one per block, so the int8 and bf16 rings do not sit in
+        # L2; SDPA on the pre-concatenated [rows, 1, W, D] K/V (the
+        # concat, and the cast of a bf16 ring under a float32 q, outside
+        # the timed call) where it computes the same function
+        from torch.nn.attention import SDPBackend
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        backend = {int(v): k for k, v in SDPBackend.__members__.items()}
+        rows, w1, adk, adv = (ATTN[k] for k in ("rows", "w1", "dk", "dv"))
+        for (qdt, kvdt), name in VARIANTS.items():
+            sets = [attn_inputs(rows, qdt, kvdt, 300 + j) for j in range(3)]
+            run = lambda fn, i: fn(*sets[i % 3][0], **sets[i % 3][1])  # noqa
+            for i in range(6):
+                run(attention_step_cuda, i)
+            k_ms = device_ms(lambda i: run(attention_step_cuda, i), 150,
+                             torch)
+            p_ms = wall_ms(lambda i: run(attention_step_reference, i), 15,
+                           torch)
+            bound, by, mb = attn_bound(
+                rows, w1, adk, adv, torch.tensor([], dtype=qdt).element_size(),
+                torch.tensor([], dtype=kvdt).element_size(),
+                kvdt == torch.int8)
+            lib_ms, lib_txt = None, "none (no PyTorch call takes per-slot " \
+                "int8 scales)"
+            if kvdt != torch.int8:
+                cat = []
+                for (q, kt, vt, kb, vb), _ in sets:
+                    k4 = torch.cat([kb.to(qdt), kt[:, None]], 1)[:, None]
+                    v4 = torch.cat([vb.to(qdt), vt[:, None]], 1)[:, None]
+                    cat.append((q[:, None, None], k4, v4))
+                for i in range(6):
+                    sdpa(*cat[i % 3])
+                lib_ms = device_ms(lambda i: sdpa(*cat[i % 3]), 150, torch)
+                choice = getattr(torch, "_fused_sdp_choice", None)
+                picked = backend.get(int(choice(*cat[0])), "?") if choice \
+                    else "not reported"
+                lib_txt = f"{lib_ms * 1e3:.1f} us (backend {picked})"
+            res[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                             bound_ms=bound, bound_by=by)
+            log(f"  {name} [{rows} rows x {w1} slots, Dk {adk}, Dv {adv}]: "
+                f"kernel {k_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+                f"({by}: {mb:.1f} MB), plain {p_ms * 1e3:.1f} us, SDPA "
+                f"{lib_txt} [{smi}]")
+
+        # the full-utterance forward of a 5 s, 1-stream mixture
+        net_gpu = Net(**FLAGSHIP)
+        net_gpu.load_state_dict(sd)
+        n_samp = int(FULL_SECONDS * 16000)
+        x = chunks_of(1, PATH_STEPS, 4).transpose(1, 2, 0, 3).reshape(1, 2, -1)
+        x = gpu(np.tile(x, (1, 1, -(-n_samp // x.shape[-1])))[..., :n_samp])
+        e = gpu(emb[:1, None])
+        net_gpu(x[..., :16000], e)                # warm-up, 1 s
+        fwd_ms = wall_ms(lambda i: net_gpu(x, e), 2, torch)
+        res["full_forward"] = dict(seconds=FULL_SECONDS, ms=fwd_ms,
+                                   rtf=fwd_ms / (FULL_SECONDS * 1e3))
+        log(f"  Net.forward, 1 stream x {FULL_SECONDS:g} s, float32: "
+            f"{fwd_ms:.1f} ms from call to synchronize (median of 2), RTF "
+            f"{fwd_ms / (FULL_SECONDS * 1e3):.4f} [{smi}]")
+    phase("times", 220, times)
+
+    tpu = "lookoncetohear_tpu/ops/pallas_attention.py"
     meta = {
-        "bilstm_scan": ("lookoncetohear_tpu_torch/csrc/bilstm_scan.cu",
+        "bilstm_scan": ("bilstm_scan.cu",
                         "lookoncetohear_tpu/ops/pallas_lstm.py:59"),
-        "ring_int8_step": ("lookoncetohear_tpu_torch/csrc/ring_int8_step.cu",
-                           "lookoncetohear_tpu/ops/pallas_attention.py:334"),
+        "ring_int8_step": ("ring_int8_step.cu", f"{tpu}:334"),
+        **{name: ("attn_step.cu", f"{tpu}:{129 if kvdt == torch.int8 else 54}")
+           for (_, kvdt), name in VARIANTS.items()},
     }
-    kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=launch_counts[k],
+    kernels = [dict(name=k, route="cuda",
+                    source=f"lookoncetohear_tpu_torch/csrc/{src}",
+                    replaces=rep, launches=launch_counts[k],
                     max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
                     plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
                     bound_by=res[k]["bound_by"],
                     library_ms=res[k]["library_ms"])
                for k, (src, rep) in meta.items()]
     log(f"engine: {json.dumps(res['engine'])}")
+    log(f"full forward: {json.dumps(res['full_forward'])}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

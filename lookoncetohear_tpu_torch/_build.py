@@ -36,6 +36,11 @@ _SIGNATURES = {
     # B, Dk, Dv, WP, w, F, nh, inv_sqrt, stream
     "ring_int8_step_f32": [_P] * 9 + [_I] * 7 + [_F, _P],
     "ring_int8_step_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k_t, v_t, k_buf, v_buf, k_scale, v_scale (NULL for a float
+    # ring), out, B, W1, Dk, Dv, inv_sqrt, stream
+    **{name: [_P] * 8 + [_I] * 4 + [_F, _P] for name in (
+        "attn_step_f32", "attn_step_bf16", "attn_step_f32_bf16kv",
+        "attn_step_f32_int8kv", "attn_step_bf16_int8kv")},
 }
 
 _lib = None

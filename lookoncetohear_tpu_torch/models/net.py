@@ -1,9 +1,10 @@
-"""Public streaming model wrapper (counterpart of `Net` in
+"""Public streaming model wrapper (counterpart of `Net` and `mod_pad` in
 `lookoncetohear_tpu/models/net.py`), with the same config field names
 as the JAX package and the reference's `model_params` JSON.
 
-Only the streaming step is ported; full-utterance `predict`/`__call__`,
-the direction head and the enrollment nets wait for later slices.
+`step` (one 8 ms chunk), `predict` and `forward` (the JAX `__call__`:
+a whole utterance) are inference only. The direction head, training
+and the enrollment nets wait for later slices.
 """
 
 from __future__ import annotations
@@ -14,6 +15,15 @@ from torch import nn
 from lookoncetohear_tpu_torch import resolve_device
 from lookoncetohear_tpu_torch.models.streaming_tfgridnet import \
     StreamingTFGridNet
+
+
+def mod_pad(x: torch.Tensor, chunk_size: int, pad: tuple[int, int]):
+    """Pad the last axis to a whole number of chunks, then by (left,
+    right) more. Returns (padded x, the number of samples added to
+    make whole chunks)."""
+    mod = (-x.shape[-1]) % chunk_size
+    x = torch.nn.functional.pad(x, (0, mod))
+    return torch.nn.functional.pad(x, tuple(pad)), mod
 
 
 class Net(nn.Module):
@@ -39,7 +49,7 @@ class Net(nn.Module):
             n_imics=num_ch, n_layers=B, lstm_hidden_units=H,
             attn_n_head=L, attn_approx_qk_dim=512, emb_dim=D,
             spk_emb_dim=embed_dim, local_atten_len=local_atten_len,
-            use_attn=use_attn)
+            use_attn=use_attn, chunk_causal=chunk_causal)
         self.to(resolve_device(device))
 
     @property
@@ -51,8 +61,35 @@ class Net(nn.Module):
         return self.tfgridnet.fb.device
 
     def init_state(self, batch_size: int, dtype=torch.float32,
-                   kv_dtype=torch.int8):
+                   kv_dtype=None):
+        """Zero streaming state on the model's device; kv_dtype=None
+        keeps the K/V ring in `dtype`, torch.int8 selects the int8
+        serving ring."""
         return self.tfgridnet.init_state(batch_size, dtype, kv_dtype)
+
+    @torch.no_grad()
+    def predict(self, x, embed, state, pad: bool = True):
+        """x: [B, M, N']; embed: [B, E]. Returns (y [B, S, N'], state).
+
+        With pad=True, x is padded to whole chunks plus the lookahead
+        `stft_pad_size` and the output trimmed back to N' samples; with
+        pad=False, x must hold whole frames."""
+        n_in = x.shape[-1]
+        if pad:
+            x, _ = mod_pad(x, self.stft_chunk_size,
+                           (0, self.stft_pad_size if self.lookahead else 0))
+        y, state = self.tfgridnet(x, embed, state)
+        return (y[..., :n_in] if pad else y), state
+
+    @torch.no_grad()
+    def forward(self, x, embeds, state=None, pad: bool = True):
+        """x: [B, M, N]; embeds: [B, n_enroll, E], of which the first
+        enrollment is used. Returns separated audio [B, S, N]. Without
+        a state, starts from a fresh one in x's dtype."""
+        embeds = embeds[:, 0]
+        if state is None:
+            state = self.init_state(x.shape[0], x.dtype)
+        return self.predict(x, embeds, state, pad)[0]
 
     @torch.no_grad()
     def step(self, x_chunk, embed, state):

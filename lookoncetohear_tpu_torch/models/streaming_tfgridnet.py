@@ -1,18 +1,32 @@
-"""Streaming causal TF-GridNet separator, serving step (counterpart of
+"""Streaming causal TF-GridNet separator (counterpart of
 `lookoncetohear_tpu/models/streaming_tfgridnet.py`).
 
-The port covers the 8 ms streaming step (T=1) with the int8 K/V ring in
-its serving form: fused QKV projection and flat LayerNorms, which the
-JAX package selects by default (`_fused_qkv_enabled`,
-`_mxu_norms_enabled`). Per step: filterbank STFT encode -> causal 3x3
-conv over a 2-frame `conv_buf` -> speaker projection multiplied in
-before block 1 -> GridNet blocks (intra-frequency BiLSTM, inter-time
-LSTM step, int8 ring attention) -> causal deconv over `deconv_buf` ->
-filterbank decode with a 1-frame `istft_buf` lookback.
+One function of (x, embedding, state) serves the 8 ms streaming step
+(T=1) and the full-utterance forward (T frames at once): filterbank
+STFT encode -> causal 3x3 conv over a 2-frame `conv_buf` -> speaker
+projection multiplied in before block 1 -> GridNet blocks
+(intra-frequency BiLSTM, inter-time LSTM on the carried (h, c), causal
+windowed attention over a K/V ring) -> causal deconv over
+`deconv_buf` -> filterbank decode with a 1-frame `istft_buf` lookback.
 
-State is a dict of tensors like the JAX pytree. The ring leaves of each
-block (k_buf, k_scale, v_buf, v_scale, pos) are updated in place by the
-ring step (`ops/ring_step.py`); every other leaf is returned anew.
+The K/V ring of each block comes in two layouts, chosen by `kv_dtype`
+when the state is made:
+  * float32 or bfloat16 (the default: the compute dtype), head-major
+    [B, nh, W-1, F*dim], cursor `pos` mod W-1. The step projects Q/K/V
+    with three matmuls and per-head LayerNorms, attends over the ring
+    and the current frame (`ops/attention.py::ring_attend`), then
+    writes slot `pos`. The full-utterance forward runs the banded
+    attention and leaves a time-ordered ring.
+  * int8, the serving form: flat (f, head, dim) slots [B, WP, F*nh*dim]
+    with per-(row, slot, head) scales, cursor mod w, fused QKV
+    projection and flat LayerNorms (the JAX package's
+    `_fused_qkv_enabled`/`_mxu_norms_enabled` defaults), through the
+    write-first ring step (`ops/ring_step.py`). T=1 only.
+
+State is a dict of tensors like the JAX pytree. At T=1 the ring leaves
+of each block (k_buf, v_buf, the int8 scales, pos) are updated IN
+PLACE; every other leaf, and every leaf of a T>1 pass, is returned
+anew.
 """
 
 from __future__ import annotations
@@ -24,6 +38,8 @@ import torch
 from torch import nn
 
 from lookoncetohear_tpu_torch.ops import stft as stft_ops
+from lookoncetohear_tpu_torch.ops.attention import (
+    causal_banded_attention_full, local_attention, ring_attend)
 from lookoncetohear_tpu_torch.ops.lstm import LSTM
 from lookoncetohear_tpu_torch.ops.norms import (LayerNorm, PReLU,
                                                 flat_head_layer_norm,
@@ -31,7 +47,15 @@ from lookoncetohear_tpu_torch.ops.norms import (LayerNorm, PReLU,
                                                 head_segment_matrix)
 from lookoncetohear_tpu_torch.ops.ring_step import ring_attend_int8_native
 
-RING_KEYS = ("k_buf", "k_scale", "v_buf", "v_scale", "pos")
+
+
+def ring_slot_leaves(block_state):
+    """(keys, axis) of the ring leaves of one block whose slot `pos` a
+    streaming step writes in place: the int8 ring's buffers and scales
+    take the slot on axis 1, the float ring's buffers on axis 2."""
+    if "k_scale" in block_state:
+        return ("k_buf", "k_scale", "v_buf", "v_scale"), 1
+    return ("k_buf", "v_buf"), 2
 
 
 # the JAX package's TorchDense (x @ kernel + bias, kernel [in, out]) is
@@ -64,18 +88,19 @@ class AttnProjection(nn.Module):
 
 
 class GridNetBlockStreaming(nn.Module):
-    """One streaming GridNet block at T=1."""
+    """One streaming GridNet block, at T=1 or over T frames."""
 
     def __init__(self, emb_dim: int, n_freqs: int, hidden: int,
                  n_head: int = 4, approx_qk_dim: int = 512,
                  local_atten_len: int = 50, use_attn: bool = True,
-                 eps: float = 1e-5):
+                 chunk_causal: bool = True, eps: float = 1e-5):
         super().__init__()
         c, h, f = emb_dim, hidden, n_freqs
         self.emb_dim, self.n_freqs, self.hidden = c, f, h
         self.n_head = n_head
         self.local_atten_len = local_atten_len
         self.use_attn = use_attn
+        self.chunk_causal = chunk_causal
         self.e_dim = int(math.ceil(approx_qk_dim / f))
         self.v_dim = c // n_head if n_head else c
         e, vd, nh = self.e_dim, self.v_dim, n_head
@@ -95,9 +120,69 @@ class GridNetBlockStreaming(nn.Module):
             self.register_buffer("seg_v", torch.from_numpy(
                 head_segment_matrix(f * nh * vd, nh, vd)), persistent=False)
 
+    # -- head-major projections (float ring, full-utterance forward) -------
+
+    def _heads(self, proj: AttnProjection, x, dim: int):
+        """Project, split heads, per-head [F*dim] LayerNorm: x [B, T, F,
+        C] -> [B, nh, T, F*dim]."""
+        b, t, f, _ = x.shape
+        y = proj.project(x).reshape(b, t, f, self.n_head, dim)
+        y = y.permute(0, 3, 1, 2, 4).reshape(b, self.n_head, t, f * dim)
+        return proj.norm(y)
+
+    def project_qkv(self, z):
+        """z: [B, T, F, C] -> per-head normalized (q, k, v), each
+        [B, nh, T, F*dim] (dim = e_dim for q/k, v_dim for v)."""
+        return (self._heads(self.attn_q, z, self.e_dim),
+                self._heads(self.attn_k, z, self.e_dim),
+                self._heads(self.attn_v, z, self.v_dim))
+
+    def output_projection(self, out):
+        """Merged-heads attention output [B, T, F, nh*v_dim] ->
+        pre-residual [B, T, F, C] (Linear + PReLU + LayerNorm over the
+        flattened F*C frame)."""
+        b, t, f, _ = out.shape
+        c = self.emb_dim
+        p = self.attn_proj.project(out)
+        return self.attn_proj.norm(p.reshape(b, t, f * c)).reshape(b, t, f, c)
+
+    @staticmethod
+    def _merge_heads(out, b: int, nh: int, t: int, f: int, vd: int):
+        """[B*nh, T, F*vd] head-major -> [B, T, F, nh*vd]: channel =
+        head * v_dim + v."""
+        out = out.reshape(b, nh, t, f, vd).permute(0, 2, 3, 1, 4)
+        return out.reshape(b, t, f, nh * vd)
+
+    # -- attention -----------------------------------------------------------
+
     def attention_section(self, z, state):
-        """z: [B, 1, F, C] -> pre-residual [B, 1, F, C]; runs the int8
-        ring step, which updates the ring leaves of `state` in place."""
+        """The streaming (T=1) attention: z [B, 1, F, C] -> pre-residual
+        [B, 1, F, C]. Updates the ring leaves of `state` in place."""
+        b, _, f, _ = z.shape
+        if state["k_buf"].dtype == torch.int8:
+            return self._attention_int8(z, state)
+        nh, e, vd, w = self.n_head, self.e_dim, self.v_dim, \
+            self.local_atten_len
+        q, k, v = self.project_qkv(z)                 # [B, nh, 1, F*dim]
+        kf = k.reshape(b * nh, f * e)
+        vf = v.reshape(b * nh, f * vd)
+        # views of the carried 4-D ring, not copies
+        out = ring_attend(q.reshape(b * nh, f * e), kf, vf,
+                          state["k_buf"].view(b * nh, w - 1, f * e),
+                          state["v_buf"].view(b * nh, w - 1, f * vd))
+        # attend, then write: the old slot `pos` was part of this step's
+        # window. One slot of each row, in place, no host sync.
+        pos = state["pos"]
+        slot = pos.reshape(1).long()
+        for key, x in (("k_buf", kf), ("v_buf", vf)):
+            buf = state[key]
+            buf.index_copy_(2, slot, x.reshape(b, nh, 1, -1).to(buf.dtype))
+        pos.add_(1).remainder_(w - 1)
+        return self.output_projection(self._merge_heads(out, b, nh, 1, f, vd))
+
+    def _attention_int8(self, z, state):
+        """The int8 ring in its serving form: one fused QKV matmul, flat
+        per-head LayerNorms, the write-first ring step."""
         b, _, f, c = z.shape
         nh, e, vd = self.n_head, self.e_dim, self.v_dim
         projs = (self.attn_q, self.attn_k, self.attn_v)
@@ -127,31 +212,76 @@ class GridNetBlockStreaming(nn.Module):
                              self.attn_proj.norm.bias, self.attn_proj.norm.eps)
         return pn.reshape(b, 1, f, c)
 
-    def forward(self, x, state):
-        """x: [B, C, 1, F] -> ([B, C, 1, F], new_state)."""
-        b, c, t, f = x.shape
-        if t != 1:
-            raise ValueError("the port runs the streaming step (T=1) only")
-        # intra-frequency BiLSTM over the F bins
-        inp = x.permute(0, 2, 3, 1)                       # [B, 1, F, C]
-        y = flat_layer_norm(inp.reshape(b * f, c), self.intra_norm.weight,
-                            self.intra_norm.bias, self.intra_norm.eps)
-        y, _ = self.intra_rnn(y.reshape(b, f, c))  # [B, F, 2H]
-        y = self.intra_linear(y).reshape(b, 1, f, c) + inp
+    def attention_full(self, z, state, new_state):
+        """The full-utterance (T>1) attention: z [B, T, F, C] ->
+        pre-residual [B, T, F, C]; puts the rewritten ring (and, in the
+        offline branch, pos = 0) into `new_state`."""
+        b, t, f, _ = z.shape
+        nh, e, vd, w = self.n_head, self.e_dim, self.v_dim, \
+            self.local_atten_len
+        kvdt = state["k_buf"].dtype
+        if kvdt == torch.int8:
+            raise ValueError("the int8 K/V ring is a streaming-step (T=1) "
+                             "serving feature")
+        q, k, v = self.project_qkv(z)                 # [B, nh, T, F*dim]
+        qf = q.reshape(b * nh, t, f * e)
+        kf = k.reshape(b * nh, t, f * e)
+        vf = v.reshape(b * nh, t, f * vd)
+        k_buf = state["k_buf"].reshape(b * nh, w - 1, f * e).to(qf.dtype)
+        v_buf = state["v_buf"].reshape(b * nh, w - 1, f * vd).to(vf.dtype)
+        if self.chunk_causal:
+            # the ring is read as time-ordered and `pos` is left alone,
+            # as in the JAX package
+            out, nk, nv = local_attention(qf, kf, vf, w, k_buf, v_buf)
+        else:
+            # offline: band over the real positions only; the pass
+            # leaves a time-ordered ring whose oldest slot is 0
+            out = causal_banded_attention_full(qf, kf, vf, w)
+            nk = torch.cat([k_buf, kf], dim=1)[:, -(w - 1):]
+            nv = torch.cat([v_buf, vf], dim=1)[:, -(w - 1):]
+            new_state["pos"] = torch.zeros((), dtype=torch.int32,
+                                           device=z.device)
+        # contiguous: the ring kernel of the next step reads a flat view
+        new_state["k_buf"] = nk.to(kvdt).reshape(
+            b, nh, w - 1, f * e).contiguous()
+        new_state["v_buf"] = nv.to(kvdt).reshape(
+            b, nh, w - 1, f * vd).contiguous()
+        return self.output_projection(self._merge_heads(out, b, nh, t, f, vd))
 
-        # inter-time LSTM, one step on the carried (h, c)
-        z = flat_layer_norm(y.reshape(b * f, c), self.inter_norm.weight,
-                            self.inter_norm.bias, self.inter_norm.eps)
+    def forward(self, x, state):
+        """x: [B, C, T, F] -> ([B, C, T, F], new_state)."""
+        b, c, t, f = x.shape
+        # intra-frequency BiLSTM over the F bins of each frame; at T=1
+        # the channel norms take the flat serving form
+        inp = x.permute(0, 2, 3, 1)                       # [B, T, F, C]
+        if t == 1:
+            y = flat_layer_norm(inp.reshape(b * f, c), self.intra_norm.weight,
+                                self.intra_norm.bias, self.intra_norm.eps)
+        else:
+            y = self.intra_norm(inp)
+        y, _ = self.intra_rnn(y.reshape(b * t, f, c))     # [B*T, F, 2H]
+        y = self.intra_linear(y).reshape(b, t, f, c) + inp
+
+        # inter-time LSTM over T from the carried (h, c)
+        if t == 1:
+            z = flat_layer_norm(y.reshape(b * f, c), self.inter_norm.weight,
+                                self.inter_norm.bias, self.inter_norm.eps)
+        else:
+            z = self.inter_norm(y)
+        z = z.reshape(b, t, f, c).transpose(1, 2).reshape(b * f, t, c)
         h0 = state["h"].reshape(b * f, self.hidden)
         c0 = state["c"].reshape(b * f, self.hidden)
-        z, (h_t, c_t) = self.inter_rnn(z.reshape(b * f, 1, c), h0, c0)
+        z, (h_t, c_t) = self.inter_rnn(z, h0, c0)
         new_state = dict(state)
         new_state["h"] = h_t.reshape(b, f, self.hidden)
         new_state["c"] = c_t.reshape(b, f, self.hidden)
-        z = self.inter_linear(z).reshape(b, 1, f, c) + y
+        z = self.inter_linear(z).reshape(b, f, t, c).transpose(1, 2) + y
 
         if self.use_attn:
-            z = z + self.attention_section(z, new_state)
+            if t == 1:
+                z = z + self.attention_section(z, new_state)
+            else:
+                z = z + self.attention_full(z, state, new_state)
         return z.permute(0, 3, 1, 2), new_state
 
 
@@ -163,26 +293,30 @@ def init_stream_state(batch_size: int, *, n_srcs: int, n_fft: int,
                       dtype=torch.float32, kv_dtype=None,
                       device=None) -> Dict[str, Any]:
     """Zero streaming state, the JAX package's pytree as a dict of
-    tensors. Only the int8 ring (kv_dtype=torch.int8) is ported."""
-    if use_attn and kv_dtype != torch.int8:
-        raise NotImplementedError(
-            "the port carries the int8 K/V ring only (kv_dtype=torch.int8)")
+    tensors. kv_dtype=None stores the K/V ring in the compute dtype;
+    torch.int8 selects the int8 serving ring."""
     f = n_fft // 2 + 1
     h, w, nh = lstm_hidden_units, local_atten_len, attn_n_head
     e = int(math.ceil(attn_approx_qk_dim / f))
     vd = emb_dim // nh if nh else emb_dim
-    wp = ((w + 7) // 8) * 8
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     def block_state():
         s = {"h": zeros(batch_size, f, h), "c": zeros(batch_size, f, h)}
-        if use_attn:
+        if use_attn and kv_dtype == torch.int8:
+            # write-first, padded to ceil(w/8)*8 slots like the JAX state
+            wp = ((w + 7) // 8) * 8
             s["k_buf"] = zeros(batch_size, wp, f * nh * e, dt=torch.int8)
             s["v_buf"] = zeros(batch_size, wp, f * nh * vd, dt=torch.int8)
             s["k_scale"] = zeros(batch_size, wp, nh, dt=torch.float32)
             s["v_scale"] = zeros(batch_size, wp, nh, dt=torch.float32)
+        elif use_attn:
+            s["k_buf"] = zeros(batch_size, nh, w - 1, f * e, dt=kv_dtype)
+            s["v_buf"] = zeros(batch_size, nh, w - 1, f * vd, dt=kv_dtype)
+        if use_attn:
             s["pos"] = zeros(dt=torch.int32)
         return s
 
@@ -202,7 +336,8 @@ class StreamingTFGridNet(nn.Module):
                  lstm_hidden_units: int = 64, attn_n_head: int = 4,
                  attn_approx_qk_dim: int = 512, emb_dim: int = 64,
                  spk_emb_dim: int = 256, local_atten_len: int = 50,
-                 use_attn: bool = True, eps: float = 1e-5, t_ksize: int = 3):
+                 use_attn: bool = True, chunk_causal: bool = True,
+                 eps: float = 1e-5, t_ksize: int = 3):
         super().__init__()
         self.n_srcs, self.n_fft, self.stride = n_srcs, n_fft, stride
         self.n_imics, self.n_layers = n_imics, n_layers
@@ -211,6 +346,7 @@ class StreamingTFGridNet(nn.Module):
         self.attn_approx_qk_dim = attn_approx_qk_dim
         self.emb_dim, self.local_atten_len = emb_dim, local_atten_len
         self.use_attn, self.t_ksize = use_attn, t_ksize
+        self.chunk_causal = chunk_causal
         self.istft_lookback = 1
         d = emb_dim
         f = self.n_freqs = n_fft // 2 + 1
@@ -219,7 +355,7 @@ class StreamingTFGridNet(nn.Module):
         self.blocks = nn.ModuleList([
             GridNetBlockStreaming(d, f, lstm_hidden_units, attn_n_head,
                                   attn_approx_qk_dim, local_atten_len,
-                                  use_attn, eps)
+                                  use_attn, chunk_causal, eps)
             for _ in range(n_layers)])
         self.embed_proj_dense = TorchDense(spk_emb_dim, d * f)
         self.embed_proj_norm = LayerNorm(d * f, eps)
@@ -230,7 +366,7 @@ class StreamingTFGridNet(nn.Module):
             persistent=False)
 
     def init_state(self, batch_size: int, dtype=torch.float32,
-                   kv_dtype=torch.int8, device=None):
+                   kv_dtype=None, device=None):
         return init_stream_state(
             batch_size, n_srcs=self.n_srcs, n_fft=self.n_fft,
             n_imics=self.n_imics, n_layers=self.n_layers,
@@ -244,9 +380,10 @@ class StreamingTFGridNet(nn.Module):
             device=self.fb.device if device is None else device)
 
     def forward(self, x, spk_embedding, state):
-        """x: [B, M, n_fft] one analysis window; spk_embedding: [B, E].
-        Returns (audio [B, n_srcs, stride], new_state), delayed by one
-        hop like the JAX package."""
+        """x: [B, M, N] audio of T frames, N = n_fft + (T-1)*stride
+        (T=1: one streaming window); spk_embedding: [B, E]. Returns
+        (audio [B, n_srcs, T*stride], new_state), delayed by one hop
+        like the JAX package."""
         b = x.shape[0]
         f, k = self.n_freqs, self.t_ksize - 1
 

@@ -11,7 +11,10 @@ A slot is primed once its tail holds a real chunk: before that its
 window is a bogus [zeros ; chunk] pre-frame that must not touch its
 state, so unprimed slots keep their old state and output zeros. The
 ring cursor `pos` is one scalar shared by every stream and always
-advances.
+advances. The K/V ring is kept in the compute dtype by default, or as
+int8 with `kv_dtype=torch.int8`; a step writes slot `pos` of every
+row of it in place, so the engine puts back that slot of unprimed
+rows.
 
 `step_pipelined`, the benchmarks, multi-GPU serving and CUDA-graph
 capture are not ported yet.
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from lookoncetohear_tpu_torch import resolve_device
-from lookoncetohear_tpu_torch.models.streaming_tfgridnet import RING_KEYS
+from lookoncetohear_tpu_torch.models.streaming_tfgridnet import \
+    ring_slot_leaves
 
 
 def _batch_major(x: torch.Tensor, n: int) -> bool:
@@ -34,11 +38,12 @@ def _batch_major(x: torch.Tensor, n: int) -> bool:
 
 class StreamingEngine:
     def __init__(self, model, params=None, max_streams: int = 64,
-                 dtype=torch.float32, kv_dtype=torch.int8, device=None):
+                 dtype=torch.float32, kv_dtype=None, device=None):
         """model: a `Net`; params: an optional state_dict loaded into a
         copy of it. The copy runs on `device` ("cuda" by default) with
-        params and activations in `dtype`; the K/V ring is int8 with
-        float32 scales."""
+        params and activations in `dtype`; the K/V ring is stored in
+        `kv_dtype` (None: `dtype`; torch.int8: the int8 serving ring
+        with float32 scales)."""
         self.device = resolve_device(device)
         self.model = copy.deepcopy(model)
         if params is not None:
@@ -106,12 +111,12 @@ class StreamingEngine:
         state["blocks"] = [
             {k: keep(nb[k], ob[k]) for k in nb}
             for nb, ob in zip(new_state["blocks"], self.state["blocks"])]
-        for i, slot, old in restore:
+        for i, slot, axis, old in restore:
             blk = state["blocks"][i]
             for k, prev in old.items():
                 m = primed.reshape((-1,) + (1,) * (prev.ndim - 1))
-                cur = blk[k].index_select(1, slot)
-                blk[k].index_copy_(1, slot, torch.where(m, cur, prev))
+                cur = blk[k].index_select(axis, slot)
+                blk[k].index_copy_(axis, slot, torch.where(m, cur, prev))
         return state
 
     @torch.no_grad()
@@ -133,16 +138,16 @@ class StreamingEngine:
         primed = self._primed_dev
         pad = self.nfft - self.chunk
         window = torch.cat([self.input_tail, chunks[..., :pad]], dim=-1)
-        # the ring step writes slot `pos` of EVERY row in place; keep
-        # what unprimed rows held there, to put back after the step
+        # the step writes slot `pos` of EVERY row of the ring in place;
+        # keep what unprimed rows held there, to put back after the step
         restore = []
         if not all_primed:
             for i, blk in enumerate(self.state["blocks"]):
                 if "pos" in blk:
+                    keys, axis = ring_slot_leaves(blk)
                     slot = blk["pos"].reshape(1).long()
-                    restore.append((i, slot, {
-                        k: blk[k].index_select(1, slot)
-                        for k in RING_KEYS[:-1]}))
+                    restore.append((i, slot, axis, {
+                        k: blk[k].index_select(axis, slot) for k in keys}))
         y, new_state = self.model.step(window, self.embeds, self.state)
         if not all_primed:
             new_state = self._keep_unprimed(new_state, primed, restore)

@@ -3,13 +3,16 @@ one nvcc call on every csrc/*.cu into a hashed library under the build
 directory, with the flags the kernels' numerics rely on, nothing built
 on import, and a clear error when nvcc is missing."""
 
+import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 
 import pytest
 
 from lookoncetohear_tpu_torch import _build
+from lookoncetohear_tpu_torch.ops.attn_step import VARIANTS
 
 
 @pytest.fixture
@@ -37,7 +40,7 @@ def test_one_nvcc_call_for_all_sources(fake_nvcc, tmp_path):
     assert len(fake_nvcc) == 1
     cmd = fake_nvcc[0]
     sources = sorted(str(p) for p in _build.CSRC.glob("*.cu"))
-    assert len(sources) == 2 and cmd[-len(sources):] == sources
+    assert len(sources) == 3 and cmd[-len(sources):] == sources
     for flag in ("arch=compute_90a,code=sm_90a", "-shared", "-fPIC", "-O3"):
         assert flag in cmd
     assert cmd[cmd.index("-Xptxas") + 1] == "-v"
@@ -50,6 +53,41 @@ def test_one_nvcc_call_for_all_sources(fake_nvcc, tmp_path):
     # the same sources and flags are not built twice
     assert _build.build() == lib and len(fake_nvcc) == 1
     assert _build.last_build["cached"]
+
+
+def _c_entries():
+    """{name: number of parameters} of every exported C entry in
+    csrc/*.cu, written out or through the ATTN_STEP_ENTRY macro."""
+    out = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            if m.group(1) != "name":           # the macro's own template
+                out[m.group(1)] = len(m.group(2).split(","))
+        macro = re.search(r"#define ATTN_STEP_ENTRY\(name, T, S\)(.*?)\{",
+                          text, re.S)
+        if macro:
+            n_args = len(re.search(r"\(([^)]*)\)", macro.group(1).split(
+                "name", 1)[1]).group(1).split(","))
+            for m in re.finditer(r"^ATTN_STEP_ENTRY\((\w+),", text, re.M):
+                out[m.group(1)] = n_args
+    return out
+
+
+def test_signatures_match_the_sources():
+    """Every C entry of the sources has a ctypes signature of its arity,
+    pointers as c_void_p (a c_int would cut them to 32 bits)."""
+    entries = _c_entries()
+    assert set(entries) == set(_build._SIGNATURES)
+    for name, argtypes in _build._SIGNATURES.items():
+        assert len(argtypes) == entries[name], name
+        assert argtypes[-1] is ctypes.c_void_p, name      # the stream
+    attn = {n: a for n, a in _build._SIGNATURES.items()
+            if n.startswith("attn_step_")}
+    assert sorted(attn) == sorted(VARIANTS.values())
+    for argtypes in attn.values():
+        assert argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -67,6 +105,7 @@ def test_importing_the_port_builds_nothing():
     code = (
         "import lookoncetohear_tpu_torch.serve.engine, "
         "lookoncetohear_tpu_torch.ops.ring_step as r, "
+        "lookoncetohear_tpu_torch.ops.attn_step as a, "
         "lookoncetohear_tpu_torch._build as b\n"
         "assert b._lib is None and not b.last_build\n")
     root = pathlib.Path(__file__).resolve().parent.parent

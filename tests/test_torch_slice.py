@@ -2,6 +2,9 @@
 the CPU at a small size (D=16, 2 blocks, H=16, 2 heads, chunk 32 + pad
 16, attention window 5 in 8 padded ring slots): JAX-initialised random
 params carried over with `params_from_jax`, int8 K/V, float32 compute.
+The engine's slot-isolation and unprimed-slot tests also run the float
+rings (float32, bf16); the float ring's parity with JAX is in
+tests/test_torch_float_ring.py.
 
 Tolerances and why:
   * one step from the same state: audio and float state atol 1e-4 (the
@@ -104,7 +107,7 @@ def test_free_running_steps_track_jax(models):
     b = 4
     emb = rng.standard_normal((b, SMALL["embed_dim"])).astype(np.float32)
     js = jm.init_state(b, jnp.float32, kv_dtype=jnp.int8)
-    ts = tm.init_state(b, torch.float32, torch.int8)
+    ts = tm.init_state(b, torch.float32, kv_dtype=torch.int8)
     for _ in range(8):
         x = rng.standard_normal((b, 2, NFFT)).astype(np.float32)
         jy, js = jstep(params, jnp.asarray(x), jnp.asarray(emb), js)
@@ -124,12 +127,14 @@ def test_bf16_step_runs(models):
     x = torch.from_numpy(rng.standard_normal((b, 2, NFFT)).astype(np.float32))
     emb = torch.from_numpy(
         rng.standard_normal((b, SMALL["embed_dim"])).astype(np.float32))
-    y32, _ = tm.step(x, emb, tm.init_state(b, torch.float32))
+    y32, _ = tm.step(x, emb, tm.init_state(b, torch.float32,
+                                           kv_dtype=torch.int8))
     net16 = Net(**SMALL, device="cpu")
     net16.load_state_dict(sd)
     net16.to(torch.bfloat16)
     y16, s16 = net16.step(x.bfloat16(), emb.bfloat16(),
-                          net16.init_state(b, torch.bfloat16))
+                          net16.init_state(b, torch.bfloat16,
+                                           kv_dtype=torch.int8))
     assert y16.dtype == torch.bfloat16 and torch.isfinite(y16).all()
     assert s16["blocks"][0]["k_buf"].dtype == torch.int8
     assert s16["blocks"][0]["k_scale"].dtype == torch.float32
@@ -175,8 +180,13 @@ def test_engine_matches_jax(models):
     np.testing.assert_array_equal(te.primed, je.primed)
 
 
-def test_engine_slot_isolation(models):
-    """Re-attaching slot 1 mid-run leaves slots 0 and 2 untouched."""
+KV_DTYPES = [torch.float32, torch.bfloat16, torch.int8]
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES, ids=str)
+def test_engine_slot_isolation(models, kv_dtype):
+    """Re-attaching slot 1 mid-run leaves slots 0 and 2 untouched, with
+    each kind of K/V ring."""
     *_, tm, sd = models
     n, c = 3, SMALL["stft_chunk_size"]
     rng = np.random.default_rng(4)
@@ -184,7 +194,8 @@ def test_engine_slot_isolation(models):
     x = rng.standard_normal((6, n, 2, c)).astype(np.float32)
     outs = []
     for reset_at in (None, 3):
-        eng = StreamingEngine(tm, sd, max_streams=n, device="cpu")
+        eng = StreamingEngine(tm, sd, max_streams=n, kv_dtype=kv_dtype,
+                              device="cpu")
         for s in range(n):
             eng.add_stream(s, emb[s])
         ys = []
@@ -199,18 +210,25 @@ def test_engine_slot_isolation(models):
     assert not np.allclose(got[5, 1], ref[5, 1])
 
 
-def test_unprimed_slot_keeps_its_ring(models):
-    """The ring step writes slot `pos` of every row in place; the engine
-    puts back what an unprimed (or inactive) row held there."""
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES, ids=str)
+def test_unprimed_slot_keeps_its_ring(models, kv_dtype):
+    """The step writes slot `pos` of every row of the ring in place (axis
+    1 of the int8 ring, axis 2 of the float ring); the engine puts back
+    what an unprimed (or inactive) row held there."""
     *_, tm, sd = models
-    eng = StreamingEngine(tm, sd, max_streams=2, device="cpu")
+    eng = StreamingEngine(tm, sd, max_streams=2, kv_dtype=kv_dtype,
+                          device="cpu")
     eng.add_stream(0, np.ones(SMALL["embed_dim"], np.float32))
     x = np.random.default_rng(5).standard_normal(
         (2, 2, SMALL["stft_chunk_size"])).astype(np.float32)
     for _ in range(3):
         eng.step(x)
+    ring = ("k_buf", "v_buf", "k_scale", "v_scale") \
+        if kv_dtype == torch.int8 else ("k_buf", "v_buf")
     for blk in eng.state["blocks"]:
-        for k in ("k_buf", "v_buf", "k_scale", "v_scale", "h", "c"):
+        assert set(blk) == {"h", "c", "pos", *ring}
+        assert blk["k_buf"].dtype == kv_dtype
+        for k in ring + ("h", "c"):
             assert not blk[k][1].any(), k
         assert blk["k_buf"][0].any()
 
@@ -220,7 +238,8 @@ def test_ring_cursor_wraps_mod_w_and_reset_leaves_it(models):
     mod W-1 like the float ring), and a slot reset zeroes the slot's
     batch-major leaves but leaves the one shared cursor alone."""
     *_, tm, sd = models
-    eng = StreamingEngine(tm, sd, max_streams=2, device="cpu")
+    eng = StreamingEngine(tm, sd, max_streams=2, kv_dtype=torch.int8,
+                          device="cpu")
     eng.add_stream(0, np.ones(SMALL["embed_dim"], np.float32))
     x = np.zeros((2, 2, SMALL["stft_chunk_size"]), np.float32)
     for i in range(W + 2):
@@ -229,6 +248,23 @@ def test_ring_cursor_wraps_mod_w_and_reset_leaves_it(models):
     eng.add_stream(1, np.ones(SMALL["embed_dim"], np.float32))
     assert all(int(b["pos"]) == (W + 2) % W for b in eng.state["blocks"])
     assert not eng.state["blocks"][0]["k_buf"][1].any()
+
+
+def test_float_cursor_wraps_mod_w_minus_1(models):
+    """The float ring's cursor wraps mod W-1 (W-1 slots, no padding),
+    and a slot reset leaves it alone too."""
+    *_, tm, sd = models
+    eng = StreamingEngine(tm, sd, max_streams=2, device="cpu")
+    assert eng.state["blocks"][0]["k_buf"].shape[2] == W - 1
+    eng.add_stream(0, np.ones(SMALL["embed_dim"], np.float32))
+    x = np.zeros((2, 2, SMALL["stft_chunk_size"]), np.float32)
+    for i in range(W + 2):
+        eng.step(x)
+        assert all(int(b["pos"]) == (i + 1) % (W - 1)
+                   for b in eng.state["blocks"])
+    eng.add_stream(1, np.ones(SMALL["embed_dim"], np.float32))
+    assert all(int(b["pos"]) == (W + 2) % (W - 1)
+               for b in eng.state["blocks"])
 
 
 # ---- the GPU default and no fallback --------------------------------------
