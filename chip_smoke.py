@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (one nvcc call), holds each kernel
-against its plain PyTorch version at the serving shapes, loads the
+Builds the port's CUDA kernels (one nvcc call) and prints what ptxas
+reports for each (registers, shared memory, spills), holds each kernel
+against its plain PyTorch version at the serving shapes (the BiLSTM
+scan also at the full forward's 625 rows, the int8 ring step over w + 3
+chained calls from one state), loads the
 flagship checkpoint (checkpoints/tsh_r5_5k_best.npz) and drives each
 path through the entry points a user calls, with every launch count set
 to 0 just before the path and read just after:
@@ -20,8 +23,11 @@ to 0 just before the path and read just after:
   * `local_attention_step_ring_int8`, the op entry of the int8 ring
     attention kernel, on the head-major serving rows.
 Then it times each kernel, its plain version and, where one exists,
-the one PyTorch call that computes the same function, with CUDA events;
-and the engine step at each ring and one full forward.
+the one PyTorch call that computes the same function, with CUDA events
+(the BiLSTM scan and cuDNN's LSTM at 64 and at 625 rows); and the
+engine step at each ring, with a profile of its device ops (the int8
+path must launch no `ring_advance_pos`: the ring step advances its
+cursor itself), and one full forward.
 
 Every phase prints its elapsed seconds and has a time limit; a failed
 phase prints its traceback and exits 1 before the result. The last
@@ -104,45 +110,10 @@ def phase(name: str, limit_s: int, fn):
     return out
 
 
-def device_ms(fn, reps: int, torch) -> float:
-    """Median device time of one call fn(i), i < reps, for a call of a
-    few launches. A sleep kernel holds the stream while the host queues
-    every call between its pair of CUDA events, so the host's launch
-    overhead, larger than many of these calls, is not timed."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn(0)
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    # ~2e9 cycles per second at the H100's clock; 1.5x the host's time
-    torch.cuda._sleep(int((1.5 * reps * host_s + 0.01) * 2e9))
-    for i in range(reps):
-        ev[i][0].record()
-        fn(i)
-        ev[i][1].record()
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in ev]))
-
-
-def wall_ms(fn, reps: int, torch) -> float:
-    """Median time from the call of fn(i) to the end of its work on the
-    card, for calls of many launches: the host's launch overhead then
-    sets the time, and a queue primed as in device_ms would overflow."""
-    out = []
-    for i in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(i)
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(out))
-
-
-def profile_steps(eng, xs, torch) -> dict:
+def profile_steps(eng, xs, torch, absent=()) -> dict:
     """Where a step's device time goes: kernel time by name and the
-    device's busy share, from a torch.profiler trace of len(xs) steps."""
+    device's busy share, from a torch.profiler trace of len(xs) steps.
+    Fails if a kernel whose name holds one of `absent` ran."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -152,6 +123,8 @@ def profile_steps(eng, xs, torch) -> dict:
     kern = [ev for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
+        if absent:
+            raise AssertionError("profiler: no device events recorded")
         log("  profiler: no device events recorded")
         return {}
     n = len(xs)
@@ -174,6 +147,11 @@ def profile_steps(eng, xs, torch) -> dict:
         f"per step (share {busy / window:.3f})")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us / n:9.1f} us/step  {name[:100]}")
+    for bad in absent:
+        ran = [name for name in by_name if bad in name]
+        if ran:
+            raise AssertionError(f"{ran[0]} ran on this path")
+        log(f"  no {bad} among the {len(by_name)} kernels of the trace")
     return dict(device_ops_per_step=len(kern) / n,
                 device_busy_ms=busy / n / 1e3, busy_share=busy / window)
 
@@ -206,8 +184,10 @@ def main() -> int:
         from lookoncetohear_tpu_torch.ops.bilstm_scan import (
             bilstm_scan_cuda, bilstm_scan_reference)
         from lookoncetohear_tpu_torch.ops.ring_step import (
-            ring_attend_int8_step_cuda, ring_attend_int8_step_reference)
+            arrival_counter, ring_attend_int8_step_cuda,
+            ring_attend_int8_step_reference)
         from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
+        from lookoncetohear_tpu_torch.timing import device_ms, wall_ms
         from lookoncetohear_tpu_torch.weights import (load_npz,
                                                       params_from_jax)
     except ImportError:
@@ -259,7 +239,7 @@ def main() -> int:
             f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
             f"{torch.__version__}, CUDA {torch.version.cuda}")
         return smi
-    smi = phase("device", 30, device)
+    smi = phase("device", 20, device)
 
     # ---- 2. build: one nvcc call for csrc/*.cu -------------------------
     def build():
@@ -274,7 +254,8 @@ def main() -> int:
     # ---- 3. BiLSTM kernel vs plain ------------------------------------
     def lstm_check():
         errs = []
-        for b in (64, 12):     # the serving batch, and a ragged one
+        # the serving batch, a ragged one, the full forward's 625 rows
+        for b in (64, 12, 625):
             xp = gpu((rng.standard_normal((97, 2, b, 256)) * 0.5)
                      .astype(np.float32))
             w_hh = gpu((rng.standard_normal((2, 64, 256)) * 0.3)
@@ -290,56 +271,82 @@ def main() -> int:
                 raise AssertionError(f"bilstm_scan differs: {err}")
             errs.append(err)
         res["bilstm_scan"]["max_abs_err"] = max(errs)
-    phase("bilstm_scan vs plain", 30, lstm_check)
+    phase("bilstm_scan vs plain", 40, lstm_check)
 
     # ---- 4. int8 ring step kernel vs plain ------------------------------
     b, f, nh, e, vd, wp, w = STREAMS, 97, 4, 6, 16, 56, 50
     dk, dv = f * nh * e, f * nh * vd
 
-    def ring_inputs(dtype):
-        return dict(
-            q=gpu(rng.standard_normal((b, dk)).astype(np.float32), dtype),
-            kt=gpu(rng.standard_normal((b, dk)).astype(np.float32), dtype),
-            vt=gpu(rng.standard_normal((b, dv)).astype(np.float32), dtype),
-            kb=gpu(rng.integers(-127, 128, (b, wp, dk)).astype(np.int8)),
-            ks=gpu(rng.uniform(1e-3, 2e-2, (b, wp, nh)).astype(np.float32)),
-            vb=gpu(rng.integers(-127, 128, (b, wp, dv)).astype(np.int8)),
-            vs=gpu(rng.uniform(1e-3, 2e-2, (b, wp, nh)).astype(np.float32)))
+    # made on the card from a seed: the chained check below draws ~200
+    # frames and 4 rings of 30 MB, which host-side generation and copies
+    # made take up to a minute on a busy host
+    gen = torch.Generator(device=dev).manual_seed(1)
 
-    def ring_run(step, a, pos):
-        r = {k: v.clone() for k, v in a.items()}
-        p = torch.tensor(pos, dtype=torch.int32, device=dev)
-        out = step(r["q"], r["kt"], r["vt"], r["kb"], r["ks"], r["vb"],
-                   r["vs"], p, f=f, n_head=nh, w=w)
-        return out, r, p
+    def frame_inputs(dtype):
+        return {k: torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for k, shape in (("q", (b, dk)), ("kt", (b, dk)),
+                                 ("vt", (b, dv)))}
+
+    def ring_inputs(dtype):
+        def scales():
+            return torch.rand((b, wp, nh), generator=gen,
+                              device=dev) * 1.9e-2 + 1e-3
+
+        def int8(d):
+            return torch.randint(-127, 128, (b, wp, d), generator=gen,
+                                 device=dev, dtype=torch.int8)
+        return dict(**frame_inputs(dtype), kb=int8(dk), ks=scales(),
+                    vb=int8(dv), vs=scales())
 
     def ring_check():
+        """w + 3 chained calls of the kernel and of its plain version,
+        each on its own copy of one state, fresh q/k_t/v_t per call;
+        after every call the ring, scales and cursor are bit-exact, out
+        within tolerance, and the kernel's arrival counter is 0."""
         errs = []
         for dtype, pos in ((torch.float32, 0), (torch.float32, 7),
                            (torch.float32, 49), (torch.bfloat16, 7)):
             a = ring_inputs(dtype)
-            o1, r1, p1 = ring_run(ring_attend_int8_step_cuda, a, pos)
-            o2, r2, p2 = ring_run(ring_attend_int8_step_reference, a, pos)
-            torch.cuda.synchronize()
-            for k in ("kb", "vb", "ks", "vs"):
-                if not torch.equal(r1[k], r2[k]):
-                    raise AssertionError(f"ring {k} not bit-exact, pos={pos}")
-            if int(p1) != int(p2) or int(p1) != (pos + 1) % w:
-                raise AssertionError(f"cursor {int(p1)} vs {int(p2)}")
-            err = (o1.float() - o2.float()).abs().max().item()
-            if dtype == torch.float32:
-                torch.testing.assert_close(o1, o2, rtol=TOL_RING_F32[0],
-                                           atol=TOL_RING_F32[1])
-                tol = f"rtol {TOL_RING_F32[0]}, atol {TOL_RING_F32[1]}"
-            else:
-                if not err <= TOL_RING_BF16:
+            states = [{k: v.clone() for k, v in a.items()} for _ in "ab"]
+            ps = [torch.tensor(pos, dtype=torch.int32, device=dev)
+                  for _ in "ab"]
+            worst = 0.0
+            for call in range(w + 3):
+                fresh = frame_inputs(dtype)
+                for st in states:
+                    st.update(fresh)
+                o1, o2 = (step(r["q"], r["kt"], r["vt"], r["kb"], r["ks"],
+                               r["vb"], r["vs"], p, f=f, n_head=nh, w=w)
+                          for step, r, p in zip(
+                              (ring_attend_int8_step_cuda,
+                               ring_attend_int8_step_reference), states, ps))
+                torch.cuda.synchronize()
+                r1, r2 = states
+                for k in ("kb", "vb", "ks", "vs"):
+                    if not torch.equal(r1[k], r2[k]):
+                        raise AssertionError(f"ring {k} not bit-exact, pos="
+                                             f"{pos}, call {call}")
+                want = (pos + call + 1) % w
+                if int(ps[0]) != want or int(ps[1]) != want:
+                    raise AssertionError(f"cursor {int(ps[0])} vs "
+                                         f"{int(ps[1])}, want {want}")
+                if int(arrival_counter(ps[0])) != 0:
+                    raise AssertionError("arrival counter not reset")
+                err = (o1.float() - o2.float()).abs().max().item()
+                if dtype == torch.float32:
+                    torch.testing.assert_close(o1, o2, rtol=TOL_RING_F32[0],
+                                               atol=TOL_RING_F32[1])
+                elif not err <= TOL_RING_BF16:
                     raise AssertionError(f"bf16 ring out differs: {err}")
-                tol = f"atol {TOL_RING_BF16}"
-            log(f"  {str(dtype)[6:]} pos={pos}: ring + scales + cursor "
-                f"bit-exact; max|out diff| = {err:.3e} ({tol})")
-            errs.append(err)
+                worst = max(worst, err)
+            tol = (f"rtol {TOL_RING_F32[0]}, atol {TOL_RING_F32[1]}"
+                   if dtype == torch.float32 else f"atol {TOL_RING_BF16}")
+            log(f"  {str(dtype)[6:]} from pos={pos}, {w + 3} chained calls: "
+                f"ring + scales + cursor bit-exact and arrival counter 0 "
+                f"after each; max|out diff| = {worst:.3e} ({tol})")
+            errs.append(worst)
         res["ring_int8_step"]["max_abs_err"] = max(errs)
-    phase("ring_int8_step vs plain", 45, ring_check)
+    phase("ring_int8_step vs plain", 120, ring_check)
 
     # ---- 5. ring attention kernel (B3, B4) vs plain ---------------------
     def attn_inputs(rows, qdt, kvdt, seed):
@@ -384,7 +391,7 @@ def main() -> int:
                     f"max|kernel - plain| = {err:.3e} ({tol})")
                 errs.append(err)
             res[name]["max_abs_err"] = max(errs)
-    phase("attn_step vs plain", 60, attn_check)
+    phase("attn_step vs plain", 40, attn_check)
 
     # ---- 6. the paths ---------------------------------------------------
     def load():
@@ -394,7 +401,7 @@ def main() -> int:
         log(f"  {CKPT}: {len(sd)} tensors, "
             f"{sum(v.numel() for v in sd.values())} params")
         return sd, net
-    sd, net = phase("load checkpoint", 30, load)
+    sd, net = phase("load checkpoint", 20, load)
     emb = rng.standard_normal((STREAMS, 256)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     t_ax = np.arange(PATH_STEPS * 128) / 16000.0
@@ -467,9 +474,9 @@ def main() -> int:
             f"from the same state: max|GPU - CPU| / peak = {worst:.3e} "
             f"(tolerance {TOL_PATH}); float state within {TOL_STATE}; "
             f"{flips} int8 ring entries off by one in {steps} steps")
-    phase("path: GPU engine vs CPU engine", 90,
+    phase("path: GPU engine vs CPU engine", 40,
           lambda: path_vs_cpu(torch.int8, "ring_int8_step"))
-    phase("path: f32-ring GPU engine vs CPU engine", 90,
+    phase("path: f32-ring GPU engine vs CPU engine", 40,
           lambda: path_vs_cpu(None, "attn_step_f32"))
 
     def streamed_vs_full():
@@ -505,7 +512,7 @@ def main() -> int:
             f"chunk k - full chunk k-1| = {err:.3e} (atol {TOL_STREAMED}); "
             f"max|GPU full - CPU full| / peak = {err_cpu / peak:.3e} "
             f"(tolerance {TOL_PATH})")
-    phase("path: streamed == full forward on the card", 90,
+    phase("path: streamed == full forward on the card", 40,
           streamed_vs_full)
 
     xs = torch.from_numpy(chunks_of(STREAMS, PATH_STEPS, 2)).to(dev)
@@ -536,14 +543,14 @@ def main() -> int:
             f"|y| {y.abs().max().item():.3f}; launches: bilstm_scan "
             f"{counts['bilstm_scan']}, {kernel} {counts[kernel]} (3 blocks "
             f"x {steps} steps each, no other kernel)")
-    phase("path: 64-stream bf16 engine", 75, lambda: path_64(
+    phase("path: 64-stream bf16 engine", 40, lambda: path_64(
         "bf16 + int8 K/V", torch.bfloat16, torch.int8, "ring_int8_step",
         PATH_STEPS))
-    phase("path: 64-stream f32 ring", 75, lambda: path_64(
+    phase("path: 64-stream f32 ring", 40, lambda: path_64(
         "float32 ring", torch.float32, None, "attn_step_f32", PATH_STEPS))
-    phase("path: 64-stream bf16 ring", 75, lambda: path_64(
+    phase("path: 64-stream bf16 ring", 40, lambda: path_64(
         "bf16 ring", torch.bfloat16, None, "attn_step_bf16", PATH_STEPS))
-    phase("path: 64-stream f32 + bf16 ring", 45, lambda: path_64(
+    phase("path: 64-stream f32 + bf16 ring", 30, lambda: path_64(
         "float32 + bf16 ring", torch.float32, torch.bfloat16,
         "attn_step_f32_bf16kv", FLOAT_PATH_STEPS))
 
@@ -585,36 +592,33 @@ def main() -> int:
                 f"{OP_RING_STEPS} steps through the wrap: ring, scales and "
                 f"cursor bit-exact with the CPU op, max|out diff| "
                 f"{worst:.3e}; {name} launched {counts[name]} times")
-    phase("path: int8 op ring (B4)", 45, op_ring_int8)
+    phase("path: int8 op ring (B4)", 30, op_ring_int8)
 
     # ---- 7. times (CUDA events) ----------------------------------------
-    def engine_times(label):
+    def engine_times(label, absent=()):
         eng, x = engines[label]
         for i in range(10):                     # warm-up
             eng.step(x[i])
         step_ms = wall_ms(lambda i: eng.step(x[i % PATH_STEPS]),
-                          TIMED_STEPS, torch)
+                          TIMED_STEPS)
         log(f"  engine step, {STREAMS} streams {label}, eager: median "
             f"{step_ms:.3f} ms from call to synchronize ({TIMED_STEPS} "
             f"steps), RTF {step_ms / CHUNK_MS:.4f} [{smi}]")
         out = dict(step_ms=step_ms, rtf=step_ms / CHUNK_MS)
-        out.update(profile_steps(eng, x[:10], torch))
+        out.update(profile_steps(eng, x[:10], torch, absent))
         return out
 
     def times():
-        res["engine"] = {label: engine_times(label) for label in
-                         ("bf16 + int8 K/V", "float32 ring", "bf16 ring")}
+        res["engine"] = {
+            "bf16 + int8 K/V": engine_times("bf16 + int8 K/V",
+                                            ("ring_advance_pos",)),
+            "float32 ring": engine_times("float32 ring"),
+            "bf16 ring": engine_times("bf16 ring")}
 
-        # BiLSTM at the path's shape: xp [97, 2, 64, 256] f32
-        t_, bb, h = 97, STREAMS, 64
-        xp = gpu((rng.standard_normal((t_, 2, bb, 4 * h)) * 0.5)
-                 .astype(np.float32))
-        w_hh = gpu((rng.standard_normal((2, h, 4 * h)) * 0.3)
-                   .astype(np.float32))
-        for _ in range(5):
-            bilstm_scan_cuda(xp, w_hh)
-        k_ms = device_ms(lambda i: bilstm_scan_cuda(xp, w_hh), 100, torch)
-        p_ms = wall_ms(lambda i: bilstm_scan_reference(xp, w_hh), 5, torch)
+        # BiLSTM at the step's shape, xp [97, 2, 64, 256] f32, and at
+        # the full forward's 625 rows, each beside cuDNN's LSTM with the
+        # checkpoint's block-0 weights on the same rows
+        t_, h = 97, 64
         lstm = torch.nn.LSTM(64, h, batch_first=True,
                              bidirectional=True).to(dev)
         with torch.no_grad():
@@ -623,22 +627,36 @@ def main() -> int:
                               ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
                     getattr(lstm, tn + sfx).copy_(
                         sd[f"tfgridnet.blocks.0.intra_rnn.{a}{sfx}"])
-            x_in = gpu(rng.standard_normal((bb, t_, 64)).astype(np.float32))
+        res["bilstm_scan_625"] = {}
+        for bb in (STREAMS, 625):
+            xp = gpu((rng.standard_normal((t_, 2, bb, 4 * h)) * 0.5)
+                     .astype(np.float32))
+            w_hh = gpu((rng.standard_normal((2, h, 4 * h)) * 0.3)
+                       .astype(np.float32))
             for _ in range(5):
-                lstm(x_in)
-            l_ms = device_ms(lambda i: lstm(x_in), 50, torch)
-        nbytes = 4 * (xp.numel() + w_hh.numel() + t_ * 2 * bb * h
-                      + 2 * bb * h)
-        flops = t_ * 2 * bb * (2 * h * 4 * h + 4 * h)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
-        res["bilstm_scan"].update(
-            ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"  bilstm_scan [97,2,64,256]: kernel {k_ms * 1e3:.1f} us, "
-            f"bound {res['bilstm_scan']['bound_ms'] * 1e3:.2f} us "
-            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP f32), plain "
-            f"{p_ms * 1e3:.1f} us, cuDNN nn.LSTM {l_ms * 1e3:.1f} us [{smi}]")
+                bilstm_scan_cuda(xp, w_hh)
+            k_ms = device_ms(lambda i: bilstm_scan_cuda(xp, w_hh), 100)
+            p_ms = wall_ms(lambda i: bilstm_scan_reference(xp, w_hh), 5)
+            with torch.no_grad():
+                x_in = gpu(rng.standard_normal((bb, t_, 64))
+                           .astype(np.float32))
+                for _ in range(5):
+                    lstm(x_in)
+                l_ms = device_ms(lambda i: lstm(x_in), 50)
+            nbytes = 4 * (xp.numel() + w_hh.numel() + t_ * 2 * bb * h
+                          + 2 * bb * h)
+            flops = t_ * 2 * bb * (2 * h * 4 * h + 4 * h)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+            row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations")
+            res["bilstm_scan" if bb == STREAMS else "bilstm_scan_625"] \
+                .update(row)
+            log(f"  bilstm_scan [97,2,{bb},256]: kernel {k_ms * 1e3:.1f} us, "
+                f"bound {row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.1f} "
+                f"MB, {flops / 1e9:.3f} GFLOP f32), plain {p_ms * 1e3:.1f} "
+                f"us, cuDNN nn.LSTM {l_ms * 1e3:.1f} us [{smi}]")
 
         # int8 ring step at the path's shapes, bf16 q/k/v, three rings
         # (one per block) so the 92 MB do not sit in the 50 MB L2
@@ -652,10 +670,9 @@ def main() -> int:
                  r["vs"], p, f=f, n_head=nh, w=w)
         for i in range(6):
             call(ring_attend_int8_step_cuda, i)
-        k_ms = device_ms(lambda i: call(ring_attend_int8_step_cuda, i), 150,
-                         torch)
+        k_ms = device_ms(lambda i: call(ring_attend_int8_step_cuda, i), 150)
         p_ms = wall_ms(lambda i: call(ring_attend_int8_step_reference, i),
-                       15, torch)
+                       15)
         live = w - 1
         nbytes = (b * live * (dk + dv) + b * live * 2 * nh * 4
                   + 2 * (2 * b * dk + b * dv) + 2 * b * dv
@@ -686,10 +703,8 @@ def main() -> int:
             run = lambda fn, i: fn(*sets[i % 3][0], **sets[i % 3][1])  # noqa
             for i in range(6):
                 run(attention_step_cuda, i)
-            k_ms = device_ms(lambda i: run(attention_step_cuda, i), 150,
-                             torch)
-            p_ms = wall_ms(lambda i: run(attention_step_reference, i), 15,
-                           torch)
+            k_ms = device_ms(lambda i: run(attention_step_cuda, i), 150)
+            p_ms = wall_ms(lambda i: run(attention_step_reference, i), 15)
             bound, by, mb = attn_bound(
                 rows, w1, adk, adv, torch.tensor([], dtype=qdt).element_size(),
                 torch.tensor([], dtype=kvdt).element_size(),
@@ -704,7 +719,7 @@ def main() -> int:
                     cat.append((q[:, None, None], k4, v4))
                 for i in range(6):
                     sdpa(*cat[i % 3])
-                lib_ms = device_ms(lambda i: sdpa(*cat[i % 3]), 150, torch)
+                lib_ms = device_ms(lambda i: sdpa(*cat[i % 3]), 150)
                 choice = getattr(torch, "_fused_sdp_choice", None)
                 picked = backend.get(int(choice(*cat[0])), "?") if choice \
                     else "not reported"
@@ -724,13 +739,13 @@ def main() -> int:
         x = gpu(np.tile(x, (1, 1, -(-n_samp // x.shape[-1])))[..., :n_samp])
         e = gpu(emb[:1, None])
         net_gpu(x[..., :16000], e)                # warm-up, 1 s
-        fwd_ms = wall_ms(lambda i: net_gpu(x, e), 2, torch)
+        fwd_ms = wall_ms(lambda i: net_gpu(x, e), 2)
         res["full_forward"] = dict(seconds=FULL_SECONDS, ms=fwd_ms,
                                    rtf=fwd_ms / (FULL_SECONDS * 1e3))
         log(f"  Net.forward, 1 stream x {FULL_SECONDS:g} s, float32: "
             f"{fwd_ms:.1f} ms from call to synchronize (median of 2), RTF "
             f"{fwd_ms / (FULL_SECONDS * 1e3):.4f} [{smi}]")
-    phase("times", 220, times)
+    phase("times", 180, times)
 
     tpu = "lookoncetohear_tpu/ops/pallas_attention.py"
     meta = {
@@ -750,6 +765,7 @@ def main() -> int:
                for k, (src, rep) in meta.items()]
     log(f"engine: {json.dumps(res['engine'])}")
     log(f"full forward: {json.dumps(res['full_forward'])}")
+    log(f"bilstm_scan at 625 rows: {json.dumps(res['bilstm_scan_625'])}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

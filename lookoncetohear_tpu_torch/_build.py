@@ -32,10 +32,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # xp, w_hh, ys, c_T, T, B, H, stream
     "bilstm_scan_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k_t, v_t, k_buf, k_scale, v_buf, v_scale, pos, out,
+    # q, k_t, v_t, k_buf, k_scale, v_buf, v_scale, pos, arrivals, out,
     # B, Dk, Dv, WP, w, F, nh, inv_sqrt, stream
-    "ring_int8_step_f32": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "ring_int8_step_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "ring_int8_step_f32": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "ring_int8_step_bf16": [_P] * 10 + [_I] * 7 + [_F, _P],
     # q, k_t, v_t, k_buf, v_buf, k_scale, v_scale (NULL for a float
     # ring), out, B, W1, Dk, Dv, inv_sqrt, stream
     **{name: [_P] * 8 + [_I] * 4 + [_F, _P] for name in (
@@ -45,7 +45,8 @@ _SIGNATURES = {
 
 _lib = None
 # what the last build did: seconds, command, and nvcc's -Xptxas -v
-# lines (registers, shared memory and spills of every kernel)
+# lines (registers, shared memory and, on the lines without "ptxas",
+# the stack frame and spills of every kernel)
 last_build: dict = {}
 
 
@@ -95,7 +96,7 @@ def build() -> Path:
     lines = (proc.stdout + proc.stderr).splitlines()
     last_build.update(
         seconds=secs, cached=False, path=str(lib), command=" ".join(cmd),
-        ptxas=[ln for ln in lines if "ptxas" in ln])
+        ptxas=[ln for ln in lines if "ptxas" in ln or "spill" in ln])
     return lib
 
 

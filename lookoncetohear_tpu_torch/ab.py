@@ -1,0 +1,339 @@
+"""A/B of the port against another version of it, on one GPU.
+
+    python3 -m lookoncetohear_tpu_torch.ab --baseline DIR [--pairs N]
+        [--out FILE]
+
+DIR is a tree of another version of the port (for example the parent
+commit's `lookoncetohear_tpu_torch/`, unpacked with `git archive`); its
+kernels are built with its own `_build.py`. Both versions run in turns
+within one call, on one card:
+  * kernels, device time by CUDA events at the serving shapes: the
+    BiLSTM scan (B2) at [97, 2, 64, 256] and at the full forward's
+    [97, 2, 625, 256], the int8 ring step (B1) at 64 rows, w=50 in 56
+    slots, bf16 and float32. B1 also as compiled with each other
+    cluster split of --splits (LOOKONCE_RING_SPLIT in
+    csrc/ring_int8_step.cu). A version's B1 entry is called with the
+    signature its source declares (with or without the arrival counter).
+  * each version's ring-step wrapper, `ring_attend_int8_step_cuda`:
+    host µs per call, which a host-bound step pays three times;
+  * the engine step of the flagship at 64 streams, bf16 + int8 K/V and
+    float32 ring: ms from call to synchronize (the step's latency) and
+    ms of host time to queue one step. Each version runs in a process of
+    its own, with the weights of this tree's checkpoint, in N pairs
+    whose first version alternates; then each version's median and
+    quartiles, and the pairs in which this version's int8 step was the
+    faster.
+The kernels run in the order this, baseline, baseline, this. Prints one
+JSON object per measurement, each with the card's name and power limit,
+and writes them to --out if given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from lookoncetohear_tpu_torch import _build
+from lookoncetohear_tpu_torch.ops import ring_step as rs
+from lookoncetohear_tpu_torch.ops.bilstm_scan import (bilstm_scan_cuda,
+                                                      bilstm_scan_reference)
+from lookoncetohear_tpu_torch.timing import device_ms
+
+ROOT = Path(__file__).resolve().parent.parent
+CKPT = ROOT / "checkpoints" / "tsh_r5_5k_best.npz"
+# the flagship separator, as chip_smoke.py drives it
+FLAGSHIP = dict(embed_dim=256, stft_chunk_size=128, stft_pad_size=64,
+                num_ch=2, D=64, L=4, I=1, J=1, B=3, H=64,
+                local_atten_len=50, use_attn=True, lookahead=True,
+                chunk_causal=True)
+# the int8 ring at the serving shape: 64 rows, F=97, 4 heads, e=6, v 16
+RING = dict(b=64, f=97, nh=4, e=6, vd=16, wp=56, w=50)
+ORDER = ("this", "baseline", "baseline", "this")   # the kernels
+
+# Run in a process of its own with one version's tree first on sys.path:
+# its engine step and its ring-step wrapper, through entry points that
+# every version of the port has. Prints one JSON object.
+_STEP_PROBE = r"""
+import json, sys, time
+import numpy as np, torch
+tree, ckpt, cfg, ring = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), \
+    json.loads(sys.argv[4])
+sys.path.insert(0, tree)
+from lookoncetohear_tpu_torch.models.net import Net
+from lookoncetohear_tpu_torch.ops.ring_step import ring_attend_int8_step_cuda
+from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
+from lookoncetohear_tpu_torch.weights import load_npz, params_from_jax
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+out = {}
+# the wrapper alone: host time per call, three rings (one per block)
+b, f, nh, e, vd, wp, w = (ring[k] for k in ("b", "f", "nh", "e", "vd",
+                                            "wp", "w"))
+g = torch.Generator(device=dev).manual_seed(0)
+def ring_state():
+    r = [torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+         for s in ((b, f * nh * e), (b, f * nh * e), (b, f * nh * vd))]
+    for d in (f * nh * e, f * nh * vd):
+        r += [torch.randint(-127, 128, (b, wp, d), generator=g, device=dev,
+                            dtype=torch.int8),
+              torch.rand((b, wp, nh), generator=g, device=dev) * 0.02 + 1e-3]
+    return r + [torch.tensor(7, dtype=torch.int32, device=dev)]
+rings = [ring_state() for _ in range(3)]
+host = []
+for i in range(400):
+    if i % 50 == 0:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring_attend_int8_step_cuda(*rings[i % 3], f=f, n_head=nh, w=w)
+    host.append(time.perf_counter() - t0)
+torch.cuda.synchronize()
+out["wrapper_host_us"] = float(np.median(host[50:])) * 1e6
+# the engine step
+sd = params_from_jax(load_npz(ckpt))
+net = Net(**cfg, device="cpu")
+net.load_state_dict(sd)
+rng = np.random.default_rng(0)
+emb = rng.standard_normal((64, 256)).astype(np.float32)
+emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+xs = torch.from_numpy(rng.standard_normal((60, 64, 2, 128)).astype(
+    np.float32) * 0.1).to(dev)
+for label, dtype, kv in (("bf16 + int8 K/V", torch.bfloat16, torch.int8),
+                         ("float32 ring", torch.float32, None)):
+    eng = StreamingEngine(net, sd, max_streams=64, dtype=dtype, kv_dtype=kv)
+    for s in range(64):
+        eng.add_stream(s, emb[s])
+    x = xs.to(dtype)
+    for i in range(10):
+        eng.step(x[i])
+    wall, queue = [], []
+    for i in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(x[10 + i % 50])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        queue.append((t1 - t0) * 1e3)
+    out[label] = dict(step_ms=float(np.median(wall)),
+                      host_ms=float(np.median(queue)))
+print(json.dumps(out))
+"""
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def _bind_ring(lib, src: Path) -> bool:
+    """ctypes signatures of a version's B1 entries; True if they take the
+    arrival counter."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    arrivals = "arrivals" in src.read_text()
+    for name in ("ring_int8_step_f32", "ring_int8_step_bf16"):
+        getattr(lib, name).argtypes = [P] * (10 if arrivals else 9) + \
+            [I] * 7 + [F, P]
+    return arrivals
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", required=True, type=Path)
+    ap.add_argument("--splits", default="4",
+                    help="other B1 cluster splits to build and time")
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="pairs of processes (this, baseline) that time "
+                    "the engine step")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab: no CUDA device", file=sys.stderr)
+        return 1
+    base_tree = args.baseline.resolve()
+    base_csrc = base_tree / "lookoncetohear_tpu_torch" / "csrc"
+    if not base_csrc.is_dir():
+        print(f"ab: {base_csrc} is not there", file=sys.stderr)
+        return 1
+    splits = [int(s) for s in args.splits.split(",") if s]
+    work = _build.BUILD_DIR
+    work.mkdir(parents=True, exist_ok=True)
+    # every build at once: the baseline tree's own, one per other split
+    # of this tree's B1, and this tree's (in this process)
+    base_build = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from lookoncetohear_tpu_torch import _build; print(_build.build())",
+         str(base_tree)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    split_builds = {
+        sp: subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DLOOKONCE_RING_SPLIT={sp}",
+             "-o", str(work / f"ring_split{sp}.so"),
+             str(_build.CSRC / "ring_int8_step.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for sp in splits}
+    _build.load_library()
+    out, err = base_build.communicate(timeout=_build.NVCC_TIMEOUT_S + 60)
+    if base_build.returncode:
+        print(err, file=sys.stderr)
+        return 1
+    base = ctypes.CDLL(out.strip().splitlines()[-1])
+    base.bilstm_scan_f32.argtypes = [ctypes.c_void_p] * 4 + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    base_arrivals = _bind_ring(
+        base, base_csrc / "ring_int8_step.cu")
+    split_libs = {}
+    for sp, proc in split_builds.items():
+        log, _ = proc.communicate(timeout=_build.NVCC_TIMEOUT_S)
+        if proc.returncode:
+            print(log, file=sys.stderr)
+            return 1
+        split_libs[sp] = ctypes.CDLL(str(work / f"ring_split{sp}.so"))
+        _bind_ring(split_libs[sp], _build.CSRC / "ring_int8_step.cu")
+
+    smi = _smi()
+    rows = []
+
+    def emit(**kw):
+        kw["device"] = smi
+        rows.append(kw)
+        print(json.dumps(kw), flush=True)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def probe(name, tree, turn) -> int:
+        """One process of one version: its ring-step wrapper's host time
+        and its engine steps. Returns non-zero if the process failed."""
+        proc = subprocess.run(
+            [sys.executable, "-c", _STEP_PROBE, str(tree), str(CKPT),
+             json.dumps(FLAGSHIP), json.dumps(RING)],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            print(proc.stderr, file=sys.stderr)
+            return 1
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        us = got.pop("wrapper_host_us")
+        emit(what="ring_attend_int8_step_cuda host", version=name,
+             turn=turn, us=us)
+        seen.setdefault(("wrapper host us", "int8", name), []).append(us)
+        for label, t in got.items():
+            emit(what="engine step, 64 streams", ring=label, version=name,
+                 turn=turn, **t)
+            seen.setdefault(("engine step ms", label, name), []).append(
+                t["step_ms"])
+        return 0
+
+    # ---- B2
+    for b in (64, 625):
+        xp = torch.randn((97, 2, b, 256), generator=g, device=dev) * 0.5
+        w_hh = torch.randn((2, 64, 256), generator=g, device=dev) * 0.3
+        ys = torch.empty((97, 2, b, 64), device=dev)
+        c_t = torch.empty((2, b, 64), device=dev)
+
+        def base_scan(i):
+            _build.check(base.bilstm_scan_f32(
+                xp.data_ptr(), w_hh.data_ptr(), ys.data_ptr(),
+                c_t.data_ptr(), 97, b, 64, stream()), "baseline bilstm_scan")
+            return ys, c_t
+        fns = {"this": lambda i: bilstm_scan_cuda(xp, w_hh),
+               "baseline": base_scan}
+        want = bilstm_scan_reference(xp, w_hh)
+        for name, fn in fns.items():
+            got = fn(0)
+            torch.cuda.synchronize()
+            emit(kernel="bilstm_scan", version=name, rows=b,
+                 max_abs_err=max((a - r).abs().max().item()
+                                 for a, r in zip(got, want)))
+        for name in ORDER:
+            for i in range(3):
+                fns[name](i)
+            emit(kernel="bilstm_scan", version=name, rows=b,
+                 us=device_ms(fns[name], 100) * 1e3)
+
+    # ---- B1, three rings so the 92 MB do not sit in the 50 MB L2
+    b, f, nh, e, vd, wp, w = (RING[k] for k in
+                              ("b", "f", "nh", "e", "vd", "wp", "w"))
+    dk, dv = f * nh * e, f * nh * vd
+    inv = float(1.0 / np.sqrt(f * e))
+
+    def ring(dtype):
+        def int8(d):
+            return torch.randint(-127, 128, (b, wp, d), generator=g,
+                                 device=dev, dtype=torch.int8)
+
+        def scales():
+            return torch.rand((b, wp, nh), generator=g, device=dev) \
+                * 1.9e-2 + 1e-3
+        return [torch.randn((b, dk), generator=g, device=dev).to(dtype),
+                torch.randn((b, dk), generator=g, device=dev).to(dtype),
+                torch.randn((b, dv), generator=g, device=dev).to(dtype),
+                int8(dk), scales(), int8(dv), scales(),
+                torch.tensor(7, dtype=torch.int32, device=dev)]
+
+    def raw_step(lib, arrivals, r):
+        """One B1 call through a library's C entry."""
+        out = torch.empty_like(r[2])
+        fn = lib.ring_int8_step_f32 if r[0].dtype == torch.float32 \
+            else lib.ring_int8_step_bf16
+        ptrs = [t.data_ptr() for t in r]
+        if arrivals:
+            ptrs.append(rs.arrival_counter(r[7]).data_ptr())
+        _build.check(fn(*ptrs, out.data_ptr(), b, dk, dv, wp, w, f, nh, inv,
+                        stream()), "ring_int8_step")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        rings = [ring(dtype) for _ in range(3)]
+        fns = {"this": lambda i: rs.ring_attend_int8_step_cuda(
+                   *rings[i % 3], f=f, n_head=nh, w=w),
+               "baseline": lambda i: raw_step(base, base_arrivals,
+                                              rings[i % 3])}
+        for sp, lib in split_libs.items():
+            fns[f"this, split {sp}"] = (
+                lambda i, lib=lib: raw_step(lib, True, rings[i % 3]))
+        order = list(fns) + list(fns)[::-1]
+        for name in order:
+            for i in range(6):
+                fns[name](i)
+            emit(kernel="ring_int8_step", version=name,
+                 dtype=str(dtype)[6:], us=device_ms(fns[name], 150) * 1e3)
+    del rings
+    torch.cuda.empty_cache()
+
+    # ---- the wrapper's host time and the engine step, one process per
+    # version and turn, --pairs pairs, each pair's first version
+    # alternating (the host varies more than the versions may differ)
+    seen: dict = {}
+    for k in range(args.pairs):
+        for name in ("this", "baseline")[::1 if k % 2 == 0 else -1]:
+            if probe(name, ROOT if name == "this" else base_tree, k):
+                return 1
+    for key, runs in seen.items():
+        emit(what=f"{key[0]}, summary", ring=key[1], version=key[2],
+             runs=len(runs), median=float(np.median(runs)),
+             quartiles=[float(np.percentile(runs, 25)),
+                        float(np.percentile(runs, 75))])
+    this_ms, base_ms = (seen.get(("engine step ms", "bf16 + int8 K/V", v))
+                        for v in ("this", "baseline"))
+    emit(what="engine step ms, bf16 + int8 K/V: pairs this ran faster",
+         wins=sum(a < b for a, b in zip(this_ms, base_ms)),
+         pairs=args.pairs)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

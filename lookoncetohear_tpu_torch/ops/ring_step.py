@@ -16,9 +16,16 @@ dtype. Unlike the JAX function, which returns new arrays, both versions
 update k_buf, k_scale, v_buf, v_scale and pos IN PLACE (the JAX kernel
 donates its ring the same way): only slot `pos` of each row is written,
 and `pos` advances to (pos + 1) % w on the device, with no host sync.
+
+The kernel splits each row's slots over a cluster of `RING_SPLIT` CTAs
+(`ring_split_plan`) and advances `pos` in the same launch, through an
+arrival counter of the ring's own (`arrival_counter`) that is 0 between
+calls.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -30,6 +37,59 @@ from lookoncetohear_tpu_torch.ops.attention import quantize_slot_native
 # shared memory a block may use on the H100 (232,448 bytes), less the
 # kernel's static shared arrays
 _MAX_DYNAMIC_SMEM = 232448 - 1024
+# CTAs per row, one thread-block cluster: the kernel's kSplit
+# (LOOKONCE_RING_SPLIT in csrc/ring_int8_step.cu, fixed when it is
+# compiled). 2, not 4: at 4 the H100 cannot hold all 64 clusters of the
+# serving step at once, and the last ones run in a second wave (52.6
+# against 29.3 us, `python3 -m lookoncetohear_tpu_torch.ab` on an H100
+# at 700 W); at 2 the 128 CTAs run one per SM.
+RING_SPLIT = 2
+# warps of a CTA (kThreads / 32 in csrc/ring_int8_step.cu)
+_KERNEL_WARPS = 13
+
+
+@dataclass(frozen=True)
+class RingSplit:
+    """How the kernel splits a row's w slots: `split` CTAs, CTA r over
+    slots [ranges[r][0], ranges[r][1]) less `pos`, each with
+    `smem_bytes` of dynamic shared memory."""
+    split: int
+    ranges: tuple
+    max_slots: int
+    smem_bytes: int
+
+
+def ring_split_plan(w: int, dk: int, dv: int, n_head: int,
+                    elem_bytes: int) -> RingSplit:
+    """The host side of the kernel's split: S CTAs per row, their slot
+    ranges and the dynamic shared memory of each (`ring_smem_bytes` in
+    csrc/ring_int8_step.cu: K slots, q/k_t/v_t in the input type, the
+    float32 value partial, scores and cross-warp partials)."""
+    split = RING_SPLIT
+    ranges = tuple((r * w // split, (r + 1) * w // split)
+                   for r in range(split))
+    max_slots = -(-w // split)
+    smem = (-(-max_slots * dk // 16) * 16 + (2 * dk + dv) * elem_bytes
+            + 4 * (dv + max_slots * n_head
+                   + _KERNEL_WARPS * max(3, max_slots) * n_head))
+    return RingSplit(split, ranges, max_slots, smem)
+
+
+_ARRIVALS: dict = {}
+
+
+def arrival_counter(pos: torch.Tensor) -> torch.Tensor:
+    """The kernel's arrival counter of the ring whose cursor is `pos`
+    (one int32 on pos's device, 0 between calls), allocated at the ring's
+    first call and kept. A counter per ring, not per device: steps of
+    different rings may run at once on different streams. One ring is
+    stepped on one stream at a time, as its in-place update needs."""
+    key = (pos.device.index, pos.data_ptr())
+    counter = _ARRIVALS.get(key)
+    if counter is None:
+        counter = _ARRIVALS[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=pos.device)
+    return counter
 
 
 def _dims(q_t, v_t, k_buf, f, n_head):
@@ -111,17 +171,20 @@ def ring_attend_int8_step_cuda(q_t, k_t, v_t, k_buf, k_scale, v_buf,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ring_attend_int8_step_cuda takes contiguous "
                          "tensors")
-    if n_head > 16 or 32 % n_head or vd % 16 or dk % 8 \
+    if n_head > 16 or 32 % n_head or vd % 16 or dk % 8 or e > 8 \
             or not 0 < w <= wp:
-        raise ValueError(f"unsupported n_head={n_head}, v dim={vd}, "
-                         f"Dk={dk} or w={w} (the kernel takes n_head a "
-                         "power of 2 up to 16, a v dim that is a multiple "
-                         "of 16, Dk a multiple of 8 and 0 < w <= WP)")
-    # dynamic shared memory: w staged K slots + q, scores and partials
-    smem = -(-w * dk // 16) * 16 + 4 * (dk + wp * n_head + 16 * n_head)
-    if smem > _MAX_DYNAMIC_SMEM:
-        raise ValueError(f"w={w} slots of Dk={dk} need {smem} bytes of "
-                         f"shared memory, over {_MAX_DYNAMIC_SMEM}")
+        raise ValueError(f"unsupported n_head={n_head}, k dim={e}, v dim="
+                         f"{vd}, Dk={dk} or w={w} (the kernel takes n_head "
+                         "a power of 2 up to 16, a k dim up to 8, a v dim "
+                         "that is a multiple of 16, Dk a multiple of 8 and "
+                         "0 < w <= WP)")
+    if any(t.data_ptr() % 16 for t in (q_t, k_t, v_t, k_buf, v_buf)):
+        raise ValueError("q/k/v and the ring must start 16-byte aligned")
+    plan = ring_split_plan(w, dk, dv, n_head, q_t.element_size())
+    if plan.smem_bytes > _MAX_DYNAMIC_SMEM:
+        raise ValueError(f"w={w} slots of Dk={dk}, Dv={dv} need "
+                         f"{plan.smem_bytes} bytes of shared memory, over "
+                         f"{_MAX_DYNAMIC_SMEM}")
     out = torch.empty_like(v_t)
     lib = _build.load_library()
     fn = lib.ring_int8_step_f32 if q_t.dtype == torch.float32 \
@@ -129,7 +192,8 @@ def ring_attend_int8_step_cuda(q_t, k_t, v_t, k_buf, k_scale, v_buf,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
             k_buf.data_ptr(), k_scale.data_ptr(), v_buf.data_ptr(),
-            v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            v_scale.data_ptr(), pos.data_ptr(),
+            arrival_counter(pos).data_ptr(), out.data_ptr(),
             b, dk, dv, wp, w, f, n_head, _score_scale(f, e), stream)
     _build.check(rc, "ring_int8_step")
     ring_attend_int8_step_cuda.launches += 1

@@ -88,6 +88,11 @@ def test_signatures_match_the_sources():
     for argtypes in attn.values():
         assert argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
+    # the ring step: 10 pointers (q, k_t, v_t, the ring, pos, the arrival
+    # counter, out), 7 ints (B, Dk, Dv, WP, w, F, nh), 1/sqrt
+    for name in ("ring_int8_step_f32", "ring_int8_step_bf16"):
+        assert _build._SIGNATURES[name] == [ctypes.c_void_p] * 10 + [
+            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -5,8 +5,9 @@ without JAX, run them without the JAX test configuration:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: BiLSTM float32 atol 2e-5; ring step float32 int8 writes
-bit-exact and floats rtol 2e-5 / atol 2e-6, bf16 q/k/v out atol 2e-2
+Tolerances: BiLSTM float32 atol 2e-5; ring step int8 writes, scales
+and cursor bit-exact after every one of w + 3 chained calls, float32
+out rtol 2e-5 / atol 2e-6, bf16 q/k/v out atol 2e-2
 (one bf16 rounding of the output, ~2^-8 relative at |out| <= ~3).
 Ring attention step: float32 over a float ring atol 1e-4 (the JAX
 package's bound for the Pallas step at the flagship shapes), over an
@@ -22,7 +23,8 @@ from lookoncetohear_tpu_torch.ops.bilstm_scan import (bilstm_scan_cuda,
 from lookoncetohear_tpu_torch.ops.attn_step import (
     VARIANTS, attention_step_cuda, attention_step_reference)
 from lookoncetohear_tpu_torch.ops.ring_step import (
-    ring_attend_int8_step_cuda, ring_attend_int8_step_reference)
+    arrival_counter, ring_attend_int8_step_cuda,
+    ring_attend_int8_step_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -36,8 +38,10 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,h", [(64, 64), (12, 64)])
+@pytest.mark.parametrize("b,h", [(64, 64), (12, 64), (625, 64)])
 def test_bilstm_kernel_matches_plain(dev, b, h):
+    """The serving batch, a ragged one, and the full forward's 625 rows
+    (1,250 blocks, several per SM), all 97 steps at atol 2e-5."""
     g = torch.Generator().manual_seed(b + h)
     xp = (torch.randn(97, 2, b, 4 * h, generator=g) * 0.5).to(dev)
     w_hh = (torch.randn(2, h, 4 * h, generator=g) * 0.3).to(dev)
@@ -70,27 +74,94 @@ def _ring(dev, b, f, nh, e, vd, wp, dtype, seed):
         vs=t(rng.uniform(1e-3, 2e-2, (b, wp, nh)).astype(np.float32)))
 
 
+def _chain(dev, a, pos, f, nh, w, dtype, seed):
+    """w + 3 consecutive calls of the kernel and of its plain version,
+    each from its own copy of one state, with fresh q/k_t/v_t per call:
+    after every call the ring, scales and pos are bit-exact, out is
+    within tolerance, and the arrival counter is back at 0."""
+    rng = np.random.default_rng(seed)
+    states = [{k: v.clone() for k, v in a.items()} for _ in range(2)]
+    ps = [torch.tensor(pos, dtype=torch.int32, device=dev) for _ in range(2)]
+    for call in range(w + 3):
+        q, kt, vt = (torch.from_numpy(rng.standard_normal(
+            a[k].shape).astype(np.float32)).to(dev, dtype)
+            for k in ("q", "kt", "vt"))
+        outs = [step(q, kt, vt, r["kb"], r["ks"], r["vb"], r["vs"], p,
+                     f=f, n_head=nh, w=w)
+                for step, r, p in zip((ring_attend_int8_step_cuda,
+                                       ring_attend_int8_step_reference),
+                                      states, ps)]
+        torch.cuda.synchronize()
+        assert int(arrival_counter(ps[0])) == 0, call
+        assert int(ps[0]) == int(ps[1]) == (pos + call + 1) % w, call
+        for k in ("kb", "vb", "ks", "vs"):
+            assert torch.equal(states[0][k], states[1][k]), (k, call)
+        if dtype == torch.float32:
+            torch.testing.assert_close(outs[0], outs[1], rtol=2e-5,
+                                       atol=2e-6)
+        else:
+            torch.testing.assert_close(outs[0].float(), outs[1].float(),
+                                       rtol=0, atol=2e-2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pos", [0, 7, 49])
 def test_ring_kernel_matches_plain(dev, dtype, pos):
+    """The serving shape (w=50 over the 2 CTAs of a row: 25 and 25
+    slots), w + 3 chained calls through the wrap of the cursor."""
     f, nh, e, vd, b, wp, w = 97, 4, 6, 16, 64, 56, 50
     a = _ring(dev, b, f, nh, e, vd, wp, dtype, seed=pos)
-    outs = []
-    for step in (ring_attend_int8_step_cuda, ring_attend_int8_step_reference):
-        r = {k: v.clone() for k, v in a.items()}
-        p = torch.tensor(pos, dtype=torch.int32, device=dev)
-        out = step(r["q"], r["kt"], r["vt"], r["kb"], r["ks"], r["vb"],
-                   r["vs"], p, f=f, n_head=nh, w=w)
-        outs.append((out, r, int(p)))
-    torch.cuda.synchronize()
-    (o1, r1, p1), (o2, r2, p2) = outs
-    assert p1 == p2 == (pos + 1) % w
-    for k in ("kb", "vb", "ks", "vs"):
-        assert torch.equal(r1[k], r2[k]), k
-    if dtype == torch.float32:
-        torch.testing.assert_close(o1, o2, rtol=2e-5, atol=2e-6)
-    else:
-        torch.testing.assert_close(o1.float(), o2.float(), rtol=0, atol=2e-2)
+    _chain(dev, a, pos, f, nh, w, dtype, seed=100 + pos)
+
+
+@pytest.mark.parametrize("w", [2, 7])
+def test_ring_kernel_ragged_split(dev, w):
+    """w not a multiple of the split: w=7 gives the two CTAs of a row 3
+    and 4 slots; at w=2, whenever `pos` is 0 or 1, the CTA holding it has
+    no live slot (w + 3 calls run `pos` through every slot)."""
+    f, nh, e, vd, b, wp = 5, 4, 2, 16, 6, 8
+    a = _ring(dev, b, f, nh, e, vd, wp, torch.float32, seed=w)
+    _chain(dev, a, w - 1, f, nh, w, torch.float32, seed=200 + w)
+
+
+def test_ring_kernel_two_rings_on_two_streams(dev):
+    """Two rings at the serving shape stepped at once, each on a stream
+    of its own, w + 3 calls: each ring has its own arrival counter, so
+    both stay bit-exact with the plain version and each cursor advances
+    once per call."""
+    f, nh, e, vd, b, wp, w = 97, 4, 6, 16, 64, 56, 50
+    rings = [_ring(dev, b, f, nh, e, vd, wp, torch.bfloat16, seed=s)
+             for s in (1, 2)]
+    plain = [{k: v.clone() for k, v in r.items()} for r in rings]
+    starts = (3, 30)
+    pos = [torch.tensor(p, dtype=torch.int32, device=dev) for p in starts]
+    pos_plain = [p.clone() for p in pos]
+    streams = [torch.cuda.Stream(dev) for _ in rings]
+    g = torch.Generator(device=dev).manual_seed(9)
+    for call in range(w + 3):
+        frames = [[torch.randn(r[k].shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for k in ("q", "kt", "vt")]
+                  for r in rings]
+        torch.cuda.synchronize()
+        outs = []
+        for r, p, fr, st in zip(rings, pos, frames, streams):
+            with torch.cuda.stream(st):
+                outs.append(ring_attend_int8_step_cuda(
+                    *fr, r["kb"], r["ks"], r["vb"], r["vs"], p, f=f,
+                    n_head=nh, w=w))
+        torch.cuda.synchronize()
+        for i, (r, rp, fr) in enumerate(zip(rings, plain, frames)):
+            want = ring_attend_int8_step_reference(
+                *fr, rp["kb"], rp["ks"], rp["vb"], rp["vs"], pos_plain[i],
+                f=f, n_head=nh, w=w)
+            assert int(pos[i]) == int(pos_plain[i]) == \
+                (starts[i] + call + 1) % w, (i, call)
+            assert int(arrival_counter(pos[i])) == 0, (i, call)
+            for k in ("kb", "vb", "ks", "vs"):
+                assert torch.equal(r[k], rp[k]), (i, k, call)
+            torch.testing.assert_close(outs[i].float(), want.float(),
+                                       rtol=0, atol=2e-2)
+    assert arrival_counter(pos[0]) is not arrival_counter(pos[1])
 
 
 def _attn_inputs(dev, b, w1, dk, dv, qdt, kvdt, seed):
