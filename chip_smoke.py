@@ -7,7 +7,8 @@ Builds the port's CUDA kernels (one nvcc call) and prints what ptxas
 reports for each (registers, shared memory, spills), holds each kernel
 against its plain PyTorch version at the serving shapes (the BiLSTM
 scan also at the full forward's 625 rows, the int8 ring step over w + 3
-chained calls from one state), loads the
+chained calls from one state, the ring attention step also at an odd K
+width), loads the
 flagship checkpoint (checkpoints/tsh_r5_5k_best.npz) and drives each
 path through the entry points a user calls, with every launch count set
 to 0 just before the path and read just after:
@@ -24,7 +25,8 @@ to 0 just before the path and read just after:
     attention kernel, on the head-major serving rows.
 Then it times each kernel, its plain version and, where one exists,
 the one PyTorch call that computes the same function, with CUDA events
-(the BiLSTM scan and cuDNN's LSTM at 64 and at 625 rows); and the
+(the BiLSTM scan and cuDNN's LSTM at 64 and at 625 rows), beside the
+floor of that timing (one launch of a one-element `add_`); and the
 engine step at each ring, with a profile of its device ops (the int8
 path must launch no `ring_advance_pos`: the ring step advances its
 cursor itself), and one full forward.
@@ -86,8 +88,9 @@ TOL_STREAMED = 1e-4
 FLOAT_PATH_STEPS = 12         # the f32-compute + bf16-ring path
 OP_RING_STEPS = 12            # the op-level int8 ring path
 FULL_SECONDS = 5.0
-# head-major rows of the float ring at 64 streams: 64 x 4 heads
-ATTN = dict(rows=STREAMS * 4, w1=49, dk=97 * 6, dv=97 * 16)
+# head-major rows of the float ring at 64 streams (64 x 4 heads); odd_dk
+# a K width whose rows start 1- or 2-byte aligned
+ATTN = dict(rows=STREAMS * 4, w1=49, dk=97 * 6, dv=97 * 16, odd_dk=525)
 
 
 def log(msg: str) -> None:
@@ -187,7 +190,8 @@ def main() -> int:
             arrival_counter, ring_attend_int8_step_cuda,
             ring_attend_int8_step_reference)
         from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
-        from lookoncetohear_tpu_torch.timing import device_ms, wall_ms
+        from lookoncetohear_tpu_torch.timing import (
+            attn_inputs as ring_attn_inputs, device_ms, wall_ms)
         from lookoncetohear_tpu_torch.weights import (load_npz,
                                                       params_from_jax)
     except ImportError:
@@ -346,52 +350,50 @@ def main() -> int:
                 f"after each; max|out diff| = {worst:.3e} ({tol})")
             errs.append(worst)
         res["ring_int8_step"]["max_abs_err"] = max(errs)
-    phase("ring_int8_step vs plain", 120, ring_check)
+    phase("ring_int8_step vs plain", 100, ring_check)
 
     # ---- 5. ring attention kernel (B3, B4) vs plain ---------------------
-    def attn_inputs(rows, qdt, kvdt, seed):
-        """q/k_t/v_t and a ring of ATTN's widths; an int8 ring gets
-        per-(row, slot) scales."""
-        g = np.random.default_rng(seed)
-        w1, adk, adv = ATTN["w1"], ATTN["dk"], ATTN["dv"]
-        a = [gpu(g.standard_normal(s).astype(np.float32), qdt)
-             for s in ((rows, adk), (rows, adk), (rows, adv))]
-        if kvdt == torch.int8:
-            a += [gpu(g.integers(-127, 128, (rows, w1, d)).astype(np.int8))
-                  for d in (adk, adv)]
-            sc = {k: gpu(g.uniform(1e-3, 2e-2, (rows, w1)).astype(np.float32))
-                  for k in ("k_scale", "v_scale")}
-        else:
-            a += [gpu(g.standard_normal((rows, w1, d)).astype(np.float32),
-                      kvdt) for d in (adk, adv)]
-            sc = {}
-        return a, sc
+    def attn_inputs(rows, qdt, kvdt, seed, dk=ATTN["dk"]):
+        """q/k_t/v_t and a ring of ATTN's widths (K rows dk wide), made
+        on the card from a seed; an int8 ring gets per-(row, slot)
+        scales."""
+        a = ring_attn_inputs(torch.Generator(device=dev).manual_seed(seed),
+                             rows, ATTN["w1"], dk, ATTN["dv"], qdt, kvdt)
+        return a[:5], ({} if a[5] is None else
+                       dict(k_scale=a[5], v_scale=a[6]))
 
     def attn_check():
         for i, ((qdt, kvdt), name) in enumerate(VARIANTS.items()):
             errs = []
-            for rows in (ATTN["rows"], 5):   # the serving rows, a ragged count
-                a, sc = attn_inputs(rows, qdt, kvdt, 100 + 10 * i + rows)
-                got = attention_step_cuda(*a, **sc)
-                want = attention_step_reference(*a, **sc)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                if qdt == kvdt == torch.float32:
-                    ok, tol = err <= TOL_ATTN_F32, f"atol {TOL_ATTN_F32}"
-                elif qdt == torch.float32 and kvdt == torch.int8:
-                    torch.testing.assert_close(got, want, rtol=TOL_ATTN_INT8,
-                                               atol=TOL_ATTN_INT8)
-                    ok, tol = True, f"rtol/atol {TOL_ATTN_INT8}"
-                else:
-                    ok, tol = err <= TOL_ATTN_BF16, f"atol {TOL_ATTN_BF16}"
-                if not (ok and got.dtype == qdt
-                        and tuple(got.shape) == (rows, ATTN["dv"])):
-                    raise AssertionError(f"{name} rows={rows}: {err}")
-                log(f"  {name} rows={rows} x {ATTN['w1']} slots: "
-                    f"max|kernel - plain| = {err:.3e} ({tol})")
-                errs.append(err)
+            # the serving rows and a ragged count, at the serving Dk and
+            # at an odd one (K rows 1- or 2-byte aligned)
+            for adk in (ATTN["dk"], ATTN["odd_dk"]):
+                for rows in (ATTN["rows"], 5):
+                    a, sc = attn_inputs(rows, qdt, kvdt,
+                                        100 + 10 * i + rows + adk, adk)
+                    got = attention_step_cuda(*a, **sc)
+                    want = attention_step_reference(*a, **sc)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    if qdt == kvdt == torch.float32:
+                        ok, tol = err <= TOL_ATTN_F32, f"atol {TOL_ATTN_F32}"
+                    elif qdt == torch.float32 and kvdt == torch.int8:
+                        torch.testing.assert_close(got, want,
+                                                   rtol=TOL_ATTN_INT8,
+                                                   atol=TOL_ATTN_INT8)
+                        ok, tol = True, f"rtol/atol {TOL_ATTN_INT8}"
+                    else:
+                        ok, tol = (err <= TOL_ATTN_BF16,
+                                   f"atol {TOL_ATTN_BF16}")
+                    if not (ok and got.dtype == qdt
+                            and tuple(got.shape) == (rows, ATTN["dv"])):
+                        raise AssertionError(
+                            f"{name} rows={rows} Dk={adk}: {err}")
+                    log(f"  {name} rows={rows} x {ATTN['w1']} slots, Dk "
+                        f"{adk}: max|kernel - plain| = {err:.3e} ({tol})")
+                    errs.append(err)
             res[name]["max_abs_err"] = max(errs)
-    phase("attn_step vs plain", 40, attn_check)
+    phase("attn_step vs plain", 60, attn_check)
 
     # ---- 6. the paths ---------------------------------------------------
     def load():
@@ -687,6 +689,14 @@ def main() -> int:
             f"bound {res['ring_int8_step']['bound_ms'] * 1e3:.2f} us "
             f"({nbytes / 1e6:.1f} MB over {live} live slots), plain "
             f"{p_ms * 1e3:.1f} us [{smi}]")
+
+        # the floor of device_ms: one launch that does nearly nothing
+        one = torch.zeros(1, device=dev)
+        for _ in range(10):
+            one.add_(1)
+        floor_ms = device_ms(lambda i: one.add_(1), 150)
+        log(f"  device_ms of a one-element add_ (the method's floor): "
+            f"{floor_ms * 1e3:.2f} us [{smi}]")
 
         # ring attention step at the float ring's serving shape (256
         # head-major rows x 49 slots), each instantiation; three input

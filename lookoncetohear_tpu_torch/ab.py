@@ -14,15 +14,21 @@ within one call, on one card:
     cluster split of --splits (LOOKONCE_RING_SPLIT in
     csrc/ring_int8_step.cu). A version's B1 entry is called with the
     signature its source declares (with or without the arrival counter).
+    The ring attention step (B3/B4): all five `attn_step_*` entries at
+    the float ring's serving shape (256 head-major rows x 49 slots, Dk
+    582, Dv 1552), each on three input sets made on the card, so the
+    rings do not sit in the 50 MB L2; then each entry's change. Beside
+    them the floor of the timing method: `device_ms` of a one-element
+    `add_`.
   * each version's ring-step wrapper, `ring_attend_int8_step_cuda`:
     host µs per call, which a host-bound step pays three times;
   * the engine step of the flagship at 64 streams, bf16 + int8 K/V and
     float32 ring: ms from call to synchronize (the step's latency) and
-    ms of host time to queue one step. Each version runs in a process of
-    its own, with the weights of this tree's checkpoint, in N pairs
-    whose first version alternates; then each version's median and
-    quartiles, and the pairs in which this version's int8 step was the
-    faster.
+    ms of host time to queue one step (--pairs 0: none). Each version
+    runs in a process of its own, with the weights of this tree's
+    checkpoint, in N pairs whose first version alternates; then each
+    version's median and quartiles, and the pairs in which this
+    version's int8 step was the faster.
 The kernels run in the order this, baseline, baseline, this. Prints one
 JSON object per measurement, each with the card's name and power limit,
 and writes them to --out if given.
@@ -42,9 +48,12 @@ import torch
 
 from lookoncetohear_tpu_torch import _build
 from lookoncetohear_tpu_torch.ops import ring_step as rs
+from lookoncetohear_tpu_torch.ops.attn_step import (VARIANTS,
+                                                    attention_step_cuda,
+                                                    attention_step_reference)
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (bilstm_scan_cuda,
                                                       bilstm_scan_reference)
-from lookoncetohear_tpu_torch.timing import device_ms
+from lookoncetohear_tpu_torch.timing import attn_entry, attn_inputs, device_ms
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "checkpoints" / "tsh_r5_5k_best.npz"
@@ -55,6 +64,8 @@ FLAGSHIP = dict(embed_dim=256, stft_chunk_size=128, stft_pad_size=64,
                 chunk_causal=True)
 # the int8 ring at the serving shape: 64 rows, F=97, 4 heads, e=6, v 16
 RING = dict(b=64, f=97, nh=4, e=6, vd=16, wp=56, w=50)
+# the float ring at the serving shape: 64 streams x 4 heads, 49 slots
+ATTN = dict(rows=256, w1=49, dk=97 * 6, dv=97 * 16)
 ORDER = ("this", "baseline", "baseline", "this")   # the kernels
 
 # Run in a process of its own with one version's tree first on sys.path:
@@ -311,6 +322,43 @@ def main() -> int:
     del rings
     torch.cuda.empty_cache()
 
+    # ---- the floor of device_ms: one launch that does nearly nothing
+    one = torch.zeros(1, device=dev)
+    for _ in range(10):
+        one.add_(1)
+    emit(what="device_ms floor: one-element add_",
+         us=device_ms(lambda i: one.add_(1), 150) * 1e3)
+
+    # ---- B3/B4, each entry on three input sets
+    nrows, w1, adk, adv = (ATTN[k] for k in ("rows", "w1", "dk", "dv"))
+    for (qdt, kvdt), name in VARIANTS.items():
+        sets = [attn_inputs(g, nrows, w1, adk, adv, qdt, kvdt)
+                for _ in range(3)]
+        base_fn = attn_entry(base, name)
+        fns = {"this": lambda i, sets=sets: attention_step_cuda(
+                   *sets[i % 3][:5], *sets[i % 3][5:]),
+               "baseline": lambda i, sets=sets, f=base_fn: f(
+                   sets[i % 3], torch.empty_like(sets[i % 3][2]))}
+        want = attention_step_reference(*sets[0][:5], *sets[0][5:]).float()
+        for version, fn in fns.items():
+            got = fn(0).float()
+            torch.cuda.synchronize()
+            emit(kernel=name, version=version,
+                 max_abs_err=(got - want).abs().max().item())
+        us = {}
+        for version in ORDER:
+            for i in range(6):
+                fns[version](i)
+            t = device_ms(fns[version], 150) * 1e3
+            us.setdefault(version, []).append(t)
+            emit(kernel=name, version=version, us=t)
+        this_us, base_us = (float(np.mean(us[v])) for v in ("this",
+                                                             "baseline"))
+        emit(kernel=name, what="summary", this_us=this_us,
+             baseline_us=base_us, change=this_us / base_us - 1.0)
+        del sets
+    torch.cuda.empty_cache()
+
     # ---- the wrapper's host time and the engine step, one process per
     # version and turn, --pairs pairs, each pair's first version
     # alternating (the host varies more than the versions may differ)
@@ -324,11 +372,12 @@ def main() -> int:
              runs=len(runs), median=float(np.median(runs)),
              quartiles=[float(np.percentile(runs, 25)),
                         float(np.percentile(runs, 75))])
-    this_ms, base_ms = (seen.get(("engine step ms", "bf16 + int8 K/V", v))
-                        for v in ("this", "baseline"))
-    emit(what="engine step ms, bf16 + int8 K/V: pairs this ran faster",
-         wins=sum(a < b for a, b in zip(this_ms, base_ms)),
-         pairs=args.pairs)
+    if args.pairs:
+        this_ms, base_ms = (seen[("engine step ms", "bf16 + int8 K/V", v)]
+                            for v in ("this", "baseline"))
+        emit(what="engine step ms, bf16 + int8 K/V: pairs this ran faster",
+             wins=sum(a < b for a, b in zip(this_ms, base_ms)),
+             pairs=args.pairs)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))

@@ -18,6 +18,8 @@ The ring is only read; the caller writes its slot after the step.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -31,9 +33,106 @@ VARIANTS = {
     (torch.float32, torch.int8): "attn_step_f32_int8kv",
     (torch.bfloat16, torch.int8): "attn_step_bf16_int8kv",
 }
-# dynamic shared memory a launch takes without an opt-in: q and the
-# W1 + 1 scores in float32
-_MAX_SMEM = 48 * 1024
+# the kernel's constants (csrc/attn_step.cu), for the plan's mirror
+_THREADS = 256
+_WARPS = _THREADS // 32
+_GRANULES = 2             # V granules per thread
+_TILE_BYTES = 24 * 1024   # K or V bytes a tile aims at
+_MAX_STAGES = 3
+_BAR_BYTES = 64
+# dynamic shared memory a block may take on the H100 (opt-in above 48 KB)
+_MAX_SMEM = 232448
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _granule(elem_bytes: int) -> int:
+    """Ring elements in one V granule: 16 bytes, 8 bytes for int8."""
+    return 8 if elem_bytes == 1 else 16 // elem_bytes
+
+
+def _tile(w1: int, slot_bytes: int) -> tuple[int, int]:
+    """(slots per tile, tiles): tiles of about _TILE_BYTES, the W1 slots
+    spread evenly over them."""
+    most = max(1, _TILE_BYTES // max(slot_bytes, 1))
+    tiles = -(-w1 // most) if w1 > 0 else 0
+    return (-(-w1 // tiles) if tiles else 1), tiles
+
+
+class AttnPlan(NamedTuple):
+    """How the kernel cuts a launch (`make_plan` in csrc/attn_step.cu):
+    V columns per block and blocks per row; ring slots per K tile and K
+    tiles, slots per V tile and V tiles, per row; shared-memory buffers
+    and their bytes; the block's dynamic shared memory."""
+    cols: int
+    col_blocks: int
+    kslots: int
+    ktiles: int
+    vslots: int
+    vtiles: int
+    stages: int
+    cap: int
+    smem: int
+
+
+def attn_step_plan(w1: int, dk: int, dv: int, elem_bytes: int,
+                   scaled: bool) -> AttnPlan:
+    """The kernel's plan for W1 slots of Dk/Dv ring elements of
+    `elem_bytes` bytes (`scaled`: an int8 ring with per-slot scales)."""
+    cols_max = _GRANULES * _THREADS * _granule(elem_bytes)
+    col_blocks = -(-dv // cols_max) if dv > cols_max else 1
+    cols = min(dv, cols_max)
+    kslots, ktiles = _tile(w1, dk * elem_bytes)
+    vslots, vtiles = _tile(w1, cols * elem_bytes)
+    cap = max(_round16(kslots * dk * elem_bytes) + 32,
+              vslots * cols * elem_bytes)
+    fixed = (_BAR_BYTES + _round16(4 * (w1 + 1)) + _round16(4 * dk)
+             + 4 * cols + 4 * _WARPS
+             + (2 * _round16(4 * w1) if scaled else 0))
+    stages = max(1, min(_MAX_STAGES, ktiles + vtiles,
+                        (_MAX_SMEM - fixed) // cap))
+    return AttnPlan(cols, col_blocks, kslots, ktiles, vslots, vtiles,
+                    stages, cap, fixed + stages * cap)
+
+
+class KTile(NamedTuple):
+    """What the kernel copies into a buffer for one K tile of a row's K
+    span: bytes [start, end) of the tile's slots; the buffer's byte 0
+    is address `base`; one bulk copy of [lo, hi) (none if hi <= lo);
+    the ragged elements at `edges` (addresses), stored one by one."""
+    start: int
+    end: int
+    base: int
+    lo: int
+    hi: int
+    edges: tuple
+
+
+def k_tile_copies(kb: int, w1: int, dk: int, elem_bytes: int,
+                   slots: int) -> list[KTile]:
+    """The K staging of one row whose K span starts at address `kb`, in
+    tiles of `slots` slots (`issue` and `place_edges` in
+    csrc/attn_step.cu): bulk copies stay inside the span's
+    16-byte-aligned interior [a0, a1); the ragged head [kb, a0) and tail
+    [a1, ke) go element by element into the tile that holds them."""
+    ke = kb + w1 * dk * elem_bytes
+    a0, a1 = _round16(kb), ke & ~15
+    head_end = min(ke, a0)
+    tail_beg = max(a1, head_end)
+    edges = [a for a in range(kb, head_end, elem_bytes)] + \
+        [a for a in range(tail_beg, ke, elem_bytes)]
+    assert len(edges) <= 32   # warp 0's lanes hold them
+    out = []
+    for j0 in range(0, w1, slots):
+        n = min(slots, w1 - j0)
+        cs = kb + j0 * dk * elem_bytes
+        ce = cs + n * dk * elem_bytes
+        base = cs & ~15
+        out.append(KTile(cs, ce, base, max(base, a0), min(_round16(ce), a1),
+                          tuple(a for a in edges if cs <= a < ce)))
+    return out
 
 
 def _score_scale(dk: int) -> float:
@@ -96,13 +195,15 @@ def attention_step_cuda(q_t, k_t, v_t, k_buf, v_buf, k_scale=None,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention_step_cuda takes contiguous tensors")
     vec = 16 // k_buf.element_size()
-    if dk % 2 or dv % vec or any(t.data_ptr() % 16 for t in tensors):
+    if dk < 1 or dv % vec or any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(
-            f"Dk={dk} must be even and Dv={dv} a multiple of {vec} (one "
-            "16-byte load per V slot), on 16-byte aligned storage")
-    if 4 * (dk + w1 + 1) > _MAX_SMEM:
-        raise ValueError(f"Dk={dk} and {w1} slots exceed the kernel's "
-                         f"{_MAX_SMEM} bytes of shared memory")
+            f"Dk={dk} must be at least 1 and Dv={dv} a multiple of {vec} "
+            "(V rows go by 16-byte copies), on 16-byte aligned storage")
+    plan = attn_step_plan(w1, dk, dv, k_buf.element_size(), int8)
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"Dk={dk}, Dv={dv} and {w1} slots need "
+                         f"{plan.smem} bytes of shared memory, over the "
+                         f"kernel's {_MAX_SMEM}")
     out = torch.empty_like(v_t)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -183,21 +183,7 @@ def _attn_inputs(dev, b, w1, dk, dv, qdt, kvdt, seed):
     return args, scales
 
 
-@pytest.mark.parametrize("qdt,kvdt", list(VARIANTS), ids=list(
-    VARIANTS.values()))
-@pytest.mark.parametrize("b", [256, 5])
-def test_attention_step_kernel_matches_plain(dev, qdt, kvdt, b):
-    """Every instantiation at the flagship head-major widths (64 streams
-    x 4 heads = 256 rows, 49 slots, Dk 582, Dv 1552) and a ragged row
-    count; odd slots of a 582-wide K row start off 16-byte alignment."""
-    args, scales = _attn_inputs(dev, b, 49, 582, 1552, qdt, kvdt, b)
-    before = attention_step_cuda.variant_launches[VARIANTS[(qdt, kvdt)]]
-    got = attention_step_cuda(*args, **scales)
-    want = attention_step_reference(*args, **scales)
-    torch.cuda.synchronize()
-    assert attention_step_cuda.variant_launches[
-        VARIANTS[(qdt, kvdt)]] == before + 1
-    assert got.dtype == qdt and got.shape == (b, 1552)
+def _check_attn(got, want, qdt, kvdt):
     if qdt == kvdt == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     elif kvdt == torch.int8 and qdt == torch.float32:
@@ -207,9 +193,53 @@ def test_attention_step_kernel_matches_plain(dev, qdt, kvdt, b):
                                    atol=2e-2)
 
 
+@pytest.mark.parametrize("qdt,kvdt", list(VARIANTS), ids=list(
+    VARIANTS.values()))
+@pytest.mark.parametrize("b", [256, 5])
+def test_attention_step_kernel_matches_plain(dev, qdt, kvdt, b):
+    """Every instantiation at the flagship head-major widths (64 streams
+    x 4 heads = 256 rows, 49 slots, Dk 582, Dv 1552) and a ragged row
+    count, and at an odd Dk = 525; K rows start off 16-byte alignment
+    (582: 4-byte aligned in bf16; 525: 2-byte aligned in bf16, 1-byte
+    in int8)."""
+    for dk in (582, 525):
+        args, scales = _attn_inputs(dev, b, 49, dk, 1552, qdt, kvdt, b + dk)
+        before = attention_step_cuda.variant_launches[VARIANTS[(qdt, kvdt)]]
+        got = attention_step_cuda(*args, **scales)
+        want = attention_step_reference(*args, **scales)
+        torch.cuda.synchronize()
+        assert attention_step_cuda.variant_launches[
+            VARIANTS[(qdt, kvdt)]] == before + 1
+        assert got.dtype == qdt and got.shape == (b, 1552)
+        _check_attn(got, want, qdt, kvdt)
+
+
+@pytest.mark.parametrize("qdt,kvdt", list(VARIANTS), ids=list(
+    VARIANTS.values()))
+@pytest.mark.parametrize("w1,dk,dv", [(3, 7, 16), (1, 1, 32), (2, 9, 16),
+                                      (120, 33, 48), (49, 582, 4208)])
+def test_attention_step_kernel_edge_shapes(dev, qdt, kvdt, w1, dk, dv):
+    """K spans shorter than 16 bytes, one slot, 120 slots, and V rows
+    wider than one block's columns (Dv 4208: two or three column
+    blocks, more tiles than buffers)."""
+    args, scales = _attn_inputs(dev, 7, w1, dk, dv, qdt, kvdt, w1 + dk)
+    got = attention_step_cuda(*args, **scales)
+    want = attention_step_reference(*args, **scales)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and got.shape == (7, dv)
+    _check_attn(got, want, qdt, kvdt)
+
+
 def test_attention_step_kernel_refuses_what_it_cannot_take(dev):
     args, _ = _attn_inputs(dev, 4, 3, 7, 16, torch.float32, torch.float32, 0)
-    with pytest.raises(ValueError, match="even"):
+    # q one element into its storage: 4-byte aligned, not 16
+    args[0] = torch.empty(4 * 7 + 1, device=dev)[1:].view(4, 7).copy_(
+        args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_step_cuda(*args)
+    args, _ = _attn_inputs(dev, 4, 3, 7, 16, torch.float32, torch.float32, 0)
+    args[3] = args[3].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
         attention_step_cuda(*args)
     args, _ = _attn_inputs(dev, 4, 3, 8, 16, torch.bfloat16, torch.float32,
                            0)
@@ -248,8 +278,8 @@ def test_ring_ops_launch_the_kernel(dev):
 def test_steps_after_a_full_pass_on_the_card(dev):
     """A full pass, then streaming steps, at a small size: the ring the
     full pass leaves feeds the ring kernel, and the GPU agrees with the
-    CPU (float32, atol 1e-4). F=33, e=16: Dk=528 is even, as the kernel
-    needs, and Dv=264 a multiple of 4."""
+    CPU (float32, atol 1e-4). F=33, e=16: Dk=528, and Dv=264 a multiple
+    of 4 (V rows go by 16-byte copies)."""
     from lookoncetohear_tpu_torch.models.net import Net
     chunk, nfft = 48, 64
     small = dict(embed_dim=32, stft_chunk_size=chunk,
