@@ -6,30 +6,45 @@
 Builds the port's CUDA kernels (one nvcc call) and prints what ptxas
 reports for each (registers, shared memory, spills), holds each kernel
 against its plain PyTorch version at the serving shapes (the BiLSTM
-scan also at the full forward's 625 rows, the int8 ring step over w + 3
-chained calls from one state, the ring attention step also at an odd K
-width), loads the
-flagship checkpoint (checkpoints/tsh_r5_5k_best.npz) and drives each
-path through the entry points a user calls, with every launch count set
-to 0 just before the path and read just after:
-  * `StreamingEngine` with the int8 K/V ring: 4 streams in float32 on
-    the GPU against the same engine on the CPU, then 64 streams in bf16;
-  * `StreamingEngine` with the float K/V ring (the default precision):
-    4 streams in float32 on the GPU against the CPU, 64 streams with a
-    float32 ring, with a bf16 ring under bf16 compute, and with a bf16
-    ring under float32 compute;
+scan also at the full forward's 625 rows and at the enrollment net's
+two shapes, the int8 ring step over w + 3 chained calls from one
+state, the ring attention step also at an odd K width), loads the
+checkpoints (checkpoints/tsh_r5_5k_best.npz, embed_r5_5k_best.npz) and
+drives each path through the entry points a user calls, with every
+launch count set to 0 just before the path and read just after:
+  * `EmbedNet`, the enrollment net, on a 5 s binaural enrollment
+    (batch 2) on the GPU against the CPU: 6 BiLSTM launches a call;
+  * `StreamingEngine` with the int8 K/V ring, eager: 4 streams in
+    float32 on the GPU against the same engine on the CPU, then 64
+    streams in bf16;
+  * `StreamingEngine` with the float K/V ring (the default precision),
+    eager: 4 streams in float32 on the GPU against the CPU, 64 streams
+    with a float32 ring, with a bf16 ring under bf16 compute, and with
+    a bf16 ring under float32 compute;
   * `Net.predict` / `Net.forward`, the full-utterance forward: the
-    streamed engine output equals the full forward on the card, and the
-    GPU full forward equals the CPU one;
+    streamed (CUDA-graph) engine output equals the full forward on the
+    card, and the GPU full forward equals the CPU one;
   * `local_attention_step_ring_int8`, the op entry of the int8 ring
-    attention kernel, on the head-major serving rows.
+    attention kernel, on the head-major serving rows;
+  * the CUDA-graph engine (the default on the card) against the eager
+    engine, 64 streams at each ring (bf16 + int8, float32, bf16, float32
+    over bf16), bit for bit over w + 3 steps, through the all-primed
+    and the masked graphs (unprimed slots, an `add_stream` between
+    replays, an inactive slot);
+  * look once, then hear: the d-vectors `EmbedNet` made on the card
+    attached to the 64-stream bf16 + int8 graph engine;
+  * `step_pipelined` + `drain` against `step` on that engine.
 Then it times each kernel, its plain version and, where one exists,
 the one PyTorch call that computes the same function, with CUDA events
-(the BiLSTM scan and cuDNN's LSTM at 64 and at 625 rows), beside the
-floor of that timing (one launch of a one-element `add_`); and the
-engine step at each ring, with a profile of its device ops (the int8
-path must launch no `ring_advance_pos`: the ring step advances its
-cursor itself), and one full forward.
+(the BiLSTM scan and cuDNN's LSTM at 64 and 625 rows and at the
+enrollment shapes), beside the floor of that timing (one launch of a
+one-element `add_`); the engine step at each ring, eager and as a
+CUDA graph (`benchmark_device`, `benchmark`, call to synchronize),
+each with a profile of its device ops, which must hold 3 BiLSTM scans
+and 3 ring steps a step and no other kernel of the port (the int8 path
+must launch no `ring_advance_pos`: the ring step advances its cursor
+itself; the graph's replays must bump no launch counter); one
+full forward; and `EmbedNet` on 5 s.
 
 Every phase prints its elapsed seconds and has a time limit; a failed
 phase prints its traceback and exits 1 before the result. The last
@@ -53,10 +68,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "checkpoints", "tsh_r5_5k_best.npz")
-FLAGSHIP = dict(embed_dim=256, stft_chunk_size=128, stft_pad_size=64,
-                num_ch=2, D=64, L=4, I=1, J=1, B=3, H=64,
-                local_atten_len=50, use_attn=True, lookahead=True,
-                chunk_causal=True)
+EMBED_CKPT = os.path.join(ROOT, "checkpoints", "embed_r5_5k_best.npz")
 STREAMS = 64
 PATH_STEPS = 60
 TIMED_STEPS = 50
@@ -66,6 +78,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12        # float32 outside the tensor cores
 # tolerances (kernel vs its plain version, same inputs, on the card)
 TOL_LSTM = 2e-5               # float32, the JAX Pallas-vs-scan bound
+# float32 over the enrollment net's 1,248-step inter-time scans: the cell
+# state carries each step's rounding (the kernel's fast exp and divide,
+# the plain version's own) through the whole chain, so the difference
+# grows with T: 0.7-2.3e-5 seen at 1,248 steps where 97 steps see
+# 1-2e-6; both versions are also held to a float64 run of the recurrence
+TOL_LSTM_LONG = 1e-4
 TOL_RING_F32 = (2e-5, 2e-6)   # rtol, atol: JAX Pallas-vs-XLA bound
 TOL_RING_BF16 = 2e-2          # atol: one bf16 rounding of |out| <~ 4
 # GPU vs CPU engine, float32, each step from the same state: the output
@@ -86,8 +104,24 @@ TOL_ATTN_BF16 = 2e-2
 # JAX package's bound for the same relation, tests/test_serve.py)
 TOL_STREAMED = 1e-4
 FLOAT_PATH_STEPS = 12         # the f32-compute + bf16-ring path
+GRAPH_STEPS = 53              # w + 3: the graph engines through the wrap
+ENROLL_SECONDS = 5.0          # enrollment: 1251 frames, F = 65
+ENROLL_BATCH = 2
+# EmbedNet GPU vs CPU, float32 (TF32 off): of the d-vectors' peak; the
+# same arithmetic in another summation order through 1,248-step
+# recurrences and T x T softmaxes
+TOL_ENROLL = 1e-4
 OP_RING_STEPS = 12            # the op-level int8 ring path
 FULL_SECONDS = 5.0
+# counter name -> the kernel's name in a profiler trace
+TRACE_NAMES = {
+    "bilstm_scan": "bilstm_scan_kernel<64>",
+    "ring_int8_step": "ring_int8_step_kernel<__nv_bfloat16>",
+    "attn_step_f32": "attn_step_kernel<float, float>",
+    "attn_step_bf16": "attn_step_kernel<__nv_bfloat16, __nv_bfloat16>",
+    "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>"}
+PORT_KERNELS = ("bilstm_scan_kernel", "ring_int8_step_kernel",
+                "attn_step_kernel")
 # head-major rows of the float ring at 64 streams (64 x 4 heads); odd_dk
 # a K width whose rows start 1- or 2-byte aligned
 ATTN = dict(rows=STREAMS * 4, w1=49, dk=97 * 6, dv=97 * 16, odd_dk=525)
@@ -113,10 +147,12 @@ def phase(name: str, limit_s: int, fn):
     return out
 
 
-def profile_steps(eng, xs, torch, absent=()) -> dict:
+def profile_steps(eng, xs, torch, expect, absent=()) -> dict:
     """Where a step's device time goes: kernel time by name and the
     device's busy share, from a torch.profiler trace of len(xs) steps.
-    Fails if a kernel whose name holds one of `absent` ran."""
+    Fails unless each kernel of the port in `expect` ({counter name:
+    launches per step}) ran exactly that often and no other kernel of the
+    port ran, or if a kernel whose name holds one of `absent` ran."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -126,11 +162,19 @@ def profile_steps(eng, xs, torch, absent=()) -> dict:
     kern = [ev for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        if absent:
-            raise AssertionError("profiler: no device events recorded")
-        log("  profiler: no device events recorded")
-        return {}
+        raise AssertionError("profiler: no device events recorded")
     n = len(xs)
+    for k, per_step in expect.items():
+        ran = sum(TRACE_NAMES[k] in ev.name for ev in kern)
+        if ran != per_step * n:
+            raise AssertionError(f"profiler: {TRACE_NAMES[k]} ran {ran} "
+                                 f"times in {n} steps, want {per_step * n}")
+    ours = sum(any(p in ev.name for p in PORT_KERNELS) for ev in kern)
+    if ours != sum(expect.values()) * n:
+        raise AssertionError(f"profiler: {ours} kernels of the port ran in "
+                             f"{n} steps, want {sum(expect.values()) * n}")
+    log(f"  profiler: {', '.join(f'{v} {k}' for k, v in expect.items())} a "
+        f"step and no other kernel of the port")
     by_name: dict = {}
     for ev in kern:
         by_name[ev.name] = by_name.get(ev.name, 0.0) + \
@@ -179,21 +223,24 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from lookoncetohear_tpu_torch import _build
-        from lookoncetohear_tpu_torch.models.net import Net
+        from lookoncetohear_tpu_torch.entry import FLAGSHIP
+        from lookoncetohear_tpu_torch.models.net import EmbedNet, Net
         from lookoncetohear_tpu_torch.ops.attention import \
             local_attention_step_ring_int8
         from lookoncetohear_tpu_torch.ops.attn_step import (
             VARIANTS, attention_step_cuda, attention_step_reference)
         from lookoncetohear_tpu_torch.ops.bilstm_scan import (
             bilstm_scan_cuda, bilstm_scan_reference)
+        from lookoncetohear_tpu_torch.ops.lstm import bidir_scan_inputs
         from lookoncetohear_tpu_torch.ops.ring_step import (
             arrival_counter, ring_attend_int8_step_cuda,
             ring_attend_int8_step_reference)
-        from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
+        from lookoncetohear_tpu_torch.serve.engine import (WARMUP_STEPS,
+                                                           StreamingEngine)
         from lookoncetohear_tpu_torch.timing import (
             attn_inputs as ring_attn_inputs, device_ms, wall_ms)
-        from lookoncetohear_tpu_torch.weights import (load_npz,
-                                                      params_from_jax)
+        from lookoncetohear_tpu_torch.weights import (
+            load_checkpoint, load_npz, params_from_jax)
     except ImportError:
         traceback.print_exc()
         print("chip_smoke: the lookoncetohear_tpu_torch package must sit "
@@ -350,7 +397,7 @@ def main() -> int:
                 f"after each; max|out diff| = {worst:.3e} ({tol})")
             errs.append(worst)
         res["ring_int8_step"]["max_abs_err"] = max(errs)
-    phase("ring_int8_step vs plain", 100, ring_check)
+    phase("ring_int8_step vs plain", 60, ring_check)
 
     # ---- 5. ring attention kernel (B3, B4) vs plain ---------------------
     def attn_inputs(rows, qdt, kvdt, seed, dk=ATTN["dk"]):
@@ -404,6 +451,82 @@ def main() -> int:
             f"{sum(v.numel() for v in sd.values())} params")
         return sd, net
     sd, net = phase("load checkpoint", 20, load)
+
+    # ---- the enrollment net ------------------------------------------------
+    enroll: dict = {}
+
+    def enroll_check():
+        """EmbedNet from its checkpoint on the card against the same net
+        on the CPU, one seeded 5 s binaural enrollment (a tone per item
+        plus noise, made on the card); 6 BiLSTM launches a call (3
+        blocks x intra and inter), nothing else. The inputs of those
+        six LSTMs are kept for the kernel check at their shapes."""
+        gen = torch.Generator(device=dev).manual_seed(5)
+        n = int(ENROLL_SECONDS * 16000)
+        t = torch.arange(n, device=dev) / 16000.0
+        f0 = torch.rand((ENROLL_BATCH, 1), generator=gen, device=dev) \
+            * 280 + 120
+        src = torch.sin(2 * np.pi * f0 * t)
+        x = torch.stack([src, torch.roll(src, 3, -1)], 1) * 0.3
+        x = x + 0.05 * torch.randn(x.shape, generator=gen, device=dev)
+        cpu_net, gpu_net = (load_checkpoint(EmbedNet(device=d), EMBED_CKPT)
+                            for d in ("cpu", "cuda"))
+        seen = []
+        hooks = [m.register_forward_hook(
+                     lambda mod, args, out: seen.append((mod, args[0])))
+                 for blk in gpu_net.net.trunk.blocks
+                 for m in (blk.intra_rnn, blk.inter_rnn)]
+        reset_counts()
+        d_gpu = gpu_net(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for h in hooks:
+            h.remove()
+        expect_counts(counts, {"bilstm_scan": 6}, "EmbedNet")
+        d_cpu = cpu_net(x.cpu())
+        peak = d_cpu.abs().max().item()
+        err = (d_gpu.cpu() - d_cpu).abs().max().item()
+        if not (tuple(d_gpu.shape) == (ENROLL_BATCH, 256)
+                and torch.isfinite(d_gpu).all() and peak > 0
+                and err <= TOL_ENROLL * peak):
+            raise AssertionError(f"EmbedNet GPU vs CPU: {err} (peak {peak})")
+        enroll.update(net=gpu_net, dvec=d_gpu, x=x, rnn_inputs=seen)
+        log(f"  {EMBED_CKPT}: 275 tensors loaded strictly; {ENROLL_BATCH} x "
+            f"{ENROLL_SECONDS:g} s, float32: max|GPU - CPU| / peak = "
+            f"{err / peak:.3e} (tolerance {TOL_ENROLL}); launches: "
+            f"bilstm_scan {counts['bilstm_scan']} (3 blocks x intra and "
+            f"inter, no other kernel)")
+    phase("path: EmbedNet GPU vs CPU", 60, enroll_check)
+
+    def lstm_enroll_check():
+        """The kernel against its plain version on the six scans of the
+        enrollment call above, at their own inputs and shapes."""
+        errs, enroll["scan_inputs"] = [], []
+
+        def diff(a, b):
+            return max((x.double() - y.double()).abs().max().item()
+                       for x, y in zip(a, b))
+        for i, (mod, a) in enumerate(enroll["rnn_inputs"]):
+            xp, w_hh = (t.contiguous() for t in bidir_scan_inputs(
+                mod.params(), mod.params("_l0_reverse"), a))
+            got = bilstm_scan_cuda(xp, w_hh)
+            plain = bilstm_scan_reference(xp, w_hh)
+            exact = bilstm_scan_reference(xp, w_hh, torch.float64)
+            err = diff(got, plain)
+            tol = TOL_LSTM if xp.shape[0] <= 97 else TOL_LSTM_LONG
+            log(f"  block {i // 2} {('intra', 'inter')[i % 2]}, xp "
+                f"{list(xp.shape)}: max|kernel - plain| = {err:.3e} "
+                f"(tolerance {tol}); from float64: kernel "
+                f"{diff(got, exact):.3e}, plain {diff(plain, exact):.3e}")
+            if not err <= tol:
+                raise AssertionError(f"bilstm_scan differs: {err}")
+            errs.append(err)
+            if i < 2:                   # block 0's two, for the times
+                enroll["scan_inputs"].append((xp, w_hh))
+        res["bilstm_scan"]["max_abs_err"] = max(
+            res["bilstm_scan"]["max_abs_err"], *errs)
+        del enroll["rnn_inputs"]
+    phase("bilstm_scan vs plain, enrollment shapes", 40, lstm_enroll_check)
     emb = rng.standard_normal((STREAMS, 256)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     t_ax = np.arange(PATH_STEPS * 128) / 16000.0
@@ -434,7 +557,7 @@ def main() -> int:
         n, steps = 4, 6
         engines = [StreamingEngine(net, sd, max_streams=n,
                                    dtype=torch.float32, kv_dtype=kv_dtype,
-                                   device=d)
+                                   device=d, cuda_graph=False)
                    for d in ("cuda", "cpu")]
         for eng in engines:
             for s in range(n):
@@ -522,7 +645,7 @@ def main() -> int:
 
     def path_64(label, dtype, kv_dtype, kernel, steps):
         eng = StreamingEngine(net, sd, max_streams=STREAMS, dtype=dtype,
-                              kv_dtype=kv_dtype)
+                              kv_dtype=kv_dtype, cuda_graph=False)
         for s in range(STREAMS):
             eng.add_stream(s, emb[s])
         x = xs.to(dtype)
@@ -545,12 +668,12 @@ def main() -> int:
             f"|y| {y.abs().max().item():.3f}; launches: bilstm_scan "
             f"{counts['bilstm_scan']}, {kernel} {counts[kernel]} (3 blocks "
             f"x {steps} steps each, no other kernel)")
-    phase("path: 64-stream bf16 engine", 40, lambda: path_64(
+    phase("path: 64-stream bf16 engine", 30, lambda: path_64(
         "bf16 + int8 K/V", torch.bfloat16, torch.int8, "ring_int8_step",
         PATH_STEPS))
-    phase("path: 64-stream f32 ring", 40, lambda: path_64(
+    phase("path: 64-stream f32 ring", 30, lambda: path_64(
         "float32 ring", torch.float32, None, "attn_step_f32", PATH_STEPS))
-    phase("path: 64-stream bf16 ring", 40, lambda: path_64(
+    phase("path: 64-stream bf16 ring", 30, lambda: path_64(
         "bf16 ring", torch.bfloat16, None, "attn_step_bf16", PATH_STEPS))
     phase("path: 64-stream f32 + bf16 ring", 30, lambda: path_64(
         "float32 + bf16 ring", torch.float32, torch.bfloat16,
@@ -596,8 +719,107 @@ def main() -> int:
                 f"{worst:.3e}; {name} launched {counts[name]} times")
     phase("path: int8 op ring (B4)", 30, op_ring_int8)
 
+    # ---- the CUDA-graph engine ------------------------------------------
+    graphs = {}
+    graph_rings = (
+        ("bf16 + int8 K/V", torch.bfloat16, torch.int8, "ring_int8_step"),
+        ("float32 ring", torch.float32, None, "attn_step_f32"),
+        ("bf16 ring", torch.bfloat16, None, "attn_step_bf16"),
+        ("float32 + bf16 ring", torch.float32, torch.bfloat16,
+         "attn_step_f32_bf16kv"))
+
+    def graph_vs_eager(label, dtype, kv_dtype, kernel):
+        """The graph engine (the default on the card) against the eager
+        engine, 64 streams, GRAPH_STEPS steps from the same start. Both
+        run the same kernels on the same state, so the output and every
+        state leaf must be bit-identical after every step: a difference
+        is a fault of the graph (a stale leaf, a wrong masked restore).
+        The masked graph runs at step 0 (no slot primed), at step 20 (an
+        `add_stream` between replays) and from step 40 on (slot 9
+        inactive); the all-primed graph the other steps. The graph
+        engine's Python runs each kernel wrapper only to warm up and
+        capture its two graphs."""
+        engs = [StreamingEngine(net, sd, max_streams=STREAMS, dtype=dtype,
+                                kv_dtype=kv_dtype, cuda_graph=g)
+                for g in (False, True)]
+        for eng in engs:
+            for s in range(STREAMS):
+                eng.add_stream(s, emb[s])
+        x = xs.to(dtype)
+        reset_counts()
+        for i in range(GRAPH_STEPS):
+            for eng in engs:
+                if i == 20:
+                    eng.add_stream(5, emb[6])
+                if i == 40:
+                    eng.remove_stream(9)
+            y_e, y_g = (eng.step(x[i % PATH_STEPS]) for eng in engs)
+            if not (torch.isfinite(y_g).all() and torch.equal(y_g, y_e)):
+                err = (y_g.float() - y_e.float()).abs().max().item()
+                raise AssertionError(f"step {i}: graph output differs from "
+                                     f"eager by up to {err}")
+            for (name, e), (_, g) in zip(*map(state_leaves, engs)):
+                if not torch.equal(g, e):
+                    raise AssertionError(f"step {i}: graph state {name} "
+                                         f"differs from eager")
+        counts = read_counts()
+        per_call = 3 * (GRAPH_STEPS + 2 * (WARMUP_STEPS + 1))
+        expect_counts(counts, {"bilstm_scan": per_call, kernel: per_call},
+                      label)
+        if set(engs[1]._graphs) != {False, True}:
+            raise AssertionError("the graph engine did not capture both "
+                                 "graphs")
+        if y_e[:, 0].abs().max().item() == 0.0:
+            raise AssertionError("engine output is all zeros")
+        engs[1].add_stream(9, emb[9])           # all slots live again
+        engs[1].step(x[0])
+        graphs[label] = (engs[1], x)
+        log(f"  {label}, {STREAMS} streams x {GRAPH_STEPS} steps: output "
+            f"and every state leaf bit-identical to the eager engine's "
+            f"after every step; launches: {kernel} and bilstm_scan "
+            f"{counts[kernel]} each = 3 x ({GRAPH_STEPS} eager steps + 2 "
+            f"graphs x ({WARMUP_STEPS} warm-up steps + 1 capture)): the "
+            f"replays ran no Python")
+    for label, dtype, kv_dtype, kernel in graph_rings:
+        phase(f"graph: {label} graph vs eager engine", 20,
+              lambda a=(label, dtype, kv_dtype, kernel): graph_vs_eager(*a))
+
+    def look_once_then_hear():
+        """The d-vectors EmbedNet made on the card become streams 0 and 1
+        of the 64-stream bf16 + int8 graph engine."""
+        eng = graphs["bf16 + int8 K/V"][0]
+        for s in range(ENROLL_BATCH):
+            eng.add_stream(s, enroll["dvec"][s].cpu().numpy())
+        x = xs.to(torch.bfloat16)
+        ys = torch.stack([eng.step(x[i]) for i in range(6)]).float()
+        if not (torch.isfinite(ys).all() and ys[0, :2].abs().max() == 0
+                and ys[1:, :2].abs().max() > 0):
+            raise AssertionError("the enrolled streams' output is wrong")
+        log(f"  EmbedNet d-vectors -> slots 0-{ENROLL_BATCH - 1} of the "
+            f"graph engine: 6 steps finite, zero until primed, then peak "
+            f"|y| {ys[1:, :2].abs().max().item():.3f}")
+    phase("look once, then hear", 20, look_once_then_hear)
+
+    def pipelined():
+        """step_pipelined(depth=4) + drain() return exactly the outputs
+        of `step` from the same state, in order, from host chunks."""
+        eng = graphs["bf16 + int8 K/V"][0]
+        host = chunks_of(STREAMS, 12, 7)
+        saved = [t.clone() for t in eng._carried()]
+        ref = [eng.step(c).float().cpu().numpy() for c in host]
+        for t, v in zip(eng._carried(), saved):
+            t.copy_(v)
+        got = [y for y in (eng.step_pipelined(c, depth=4) for c in host)
+               if y is not None] + eng.drain()
+        if len(got) != len(ref) or not all(
+                np.array_equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError("pipelined outputs differ from step's")
+        log(f"  {len(host)} steps, depth 4: step_pipelined + drain == step, "
+            f"bit for bit, in order")
+    phase("pipelined == step", 20, pipelined)
+
     # ---- 7. times (CUDA events) ----------------------------------------
-    def engine_times(label, absent=()):
+    def engine_times(label, kernel, absent=()):
         eng, x = engines[label]
         for i in range(10):                     # warm-up
             eng.step(x[i])
@@ -607,20 +829,63 @@ def main() -> int:
             f"{step_ms:.3f} ms from call to synchronize ({TIMED_STEPS} "
             f"steps), RTF {step_ms / CHUNK_MS:.4f} [{smi}]")
         out = dict(step_ms=step_ms, rtf=step_ms / CHUNK_MS)
-        out.update(profile_steps(eng, x[:10], torch, absent))
+        out.update(profile_steps(eng, x[:10], torch,
+                                 {"bilstm_scan": 3, kernel: 3}, absent))
+        return out
+
+    def graph_times(label, kernel, absent=()):
+        """The graph engine's step: call to synchronize, its
+        `benchmark_device` (replays between CUDA events, slope of 100
+        and 500 steps) and `benchmark` (call to a fetched element), and
+        a profile of its device ops: 3 BiLSTM scans and 3 ring steps a
+        replay, no other kernel of the port, and no launch counter
+        bumped (the replays run no wrapper)."""
+        eng, x = graphs[label]
+        for i in range(10):                     # warm-up
+            eng.step(x[i])
+        step_ms = wall_ms(lambda i: eng.step(x[i % PATH_STEPS]),
+                          TIMED_STEPS)
+        out = dict(step_ms=step_ms, rtf=step_ms / CHUNK_MS)
+        out.update(eng.benchmark_device())
+        out.update(eng.benchmark())
+        eager = res["engine"][label]["step_ms"]
+        log(f"  engine step, {STREAMS} streams {label}, CUDA graph: median "
+            f"{step_ms:.3f} ms from call to synchronize (eager "
+            f"{eager:.3f}), RTF {step_ms / CHUNK_MS:.4f}; benchmark_device "
+            f"{out['device_p50_ms']:.3f} ms p50, {out['device_best_ms']:.3f} "
+            f"best, RTF {out['rtf']:.4f}; benchmark p50 "
+            f"{out['p50_ms_incl_transport']:.3f} ms incl. transport [{smi}]")
+        reset_counts()
+        out.update(profile_steps(eng, x[:10], torch,
+                                 {"bilstm_scan": 3, kernel: 3}, absent))
+        expect_counts(read_counts(), {}, f"{label} graph replays")
         return out
 
     def times():
-        res["engine"] = {
-            "bf16 + int8 K/V": engine_times("bf16 + int8 K/V",
-                                            ("ring_advance_pos",)),
-            "float32 ring": engine_times("float32 ring"),
-            "bf16 ring": engine_times("bf16 ring")}
+        # the eager and the graph step at the three rings of the 64-stream
+        # paths (the float32 + bf16 ring is checked, not timed)
+        timed = [(label, kernel, ("ring_advance_pos",)
+                  if kernel == "ring_int8_step" else ())
+                 for label, _, _, kernel in graph_rings[:3]]
+        res["engine"] = {label: engine_times(label, *a)
+                         for label, *a in timed}
+        res["graph"] = {label: graph_times(label, *a)
+                        for label, *a in timed}
 
-        # BiLSTM at the step's shape, xp [97, 2, 64, 256] f32, and at
-        # the full forward's 625 rows, each beside cuDNN's LSTM with the
-        # checkpoint's block-0 weights on the same rows
-        t_, h = 97, 64
+        # the enrollment net on one 5 s enrollment, float32
+        x1 = enroll["x"][:1]
+        enroll["net"](x1)                           # warm-up
+        e_ms = wall_ms(lambda i: enroll["net"](x1), 3)
+        res["enroll"] = dict(seconds=ENROLL_SECONDS, ms=e_ms)
+        log(f"  EmbedNet, 1 x {ENROLL_SECONDS:g} s, float32: {e_ms:.1f} ms "
+            f"from call to synchronize (median of 3) [{smi}]")
+
+        # BiLSTM at the step's shape, xp [97, 2, 64, 256] f32, at the
+        # full forward's 625 rows (random inputs), and at the enrollment
+        # call's intra and inter shapes (block 0's own inputs), each
+        # beside cuDNN's LSTM (input width 64, the separator checkpoint's
+        # block-0 weights) over the same rows and steps
+        h = 64
         lstm = torch.nn.LSTM(64, h, batch_first=True,
                              bidirectional=True).to(dev)
         with torch.no_grad():
@@ -629,16 +894,22 @@ def main() -> int:
                               ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
                     getattr(lstm, tn + sfx).copy_(
                         sd[f"tfgridnet.blocks.0.intra_rnn.{a}{sfx}"])
-        res["bilstm_scan_625"] = {}
-        for bb in (STREAMS, 625):
-            xp = gpu((rng.standard_normal((t_, 2, bb, 4 * h)) * 0.5)
-                     .astype(np.float32))
-            w_hh = gpu((rng.standard_normal((2, h, 4 * h)) * 0.3)
-                       .astype(np.float32))
+
+        def random_scan(t_, bb):
+            return (gpu((rng.standard_normal((t_, 2, bb, 4 * h)) * 0.5)
+                        .astype(np.float32)),
+                    gpu((rng.standard_normal((2, h, 4 * h)) * 0.3)
+                        .astype(np.float32)))
+        cases = [("bilstm_scan", random_scan(97, STREAMS)),
+                 ("bilstm_scan_625", random_scan(97, 625)),
+                 ("bilstm_scan_enroll_intra", enroll["scan_inputs"][0]),
+                 ("bilstm_scan_enroll_inter", enroll["scan_inputs"][1])]
+        for key, (xp, w_hh) in cases:
+            t_, _, bb, _ = xp.shape
             for _ in range(5):
                 bilstm_scan_cuda(xp, w_hh)
             k_ms = device_ms(lambda i: bilstm_scan_cuda(xp, w_hh), 100)
-            p_ms = wall_ms(lambda i: bilstm_scan_reference(xp, w_hh), 5)
+            p_ms = wall_ms(lambda i: bilstm_scan_reference(xp, w_hh), 3)
             with torch.no_grad():
                 x_in = gpu(rng.standard_normal((bb, t_, 64))
                            .astype(np.float32))
@@ -653,10 +924,9 @@ def main() -> int:
                        bound_ms=max(t_bytes, t_ops) * 1e3,
                        bound_by="bytes" if t_bytes >= t_ops
                        else "operations")
-            res["bilstm_scan" if bb == STREAMS else "bilstm_scan_625"] \
-                .update(row)
-            log(f"  bilstm_scan [97,2,{bb},256]: kernel {k_ms * 1e3:.1f} us, "
-                f"bound {row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.1f} "
+            res.setdefault(key, {}).update(row)
+            log(f"  bilstm_scan {list(xp.shape)}: kernel {k_ms * 1e3:.1f} "
+                f"us, bound {row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.1f} "
                 f"MB, {flops / 1e9:.3f} GFLOP f32), plain {p_ms * 1e3:.1f} "
                 f"us, cuDNN nn.LSTM {l_ms * 1e3:.1f} us [{smi}]")
 
@@ -755,7 +1025,7 @@ def main() -> int:
         log(f"  Net.forward, 1 stream x {FULL_SECONDS:g} s, float32: "
             f"{fwd_ms:.1f} ms from call to synchronize (median of 2), RTF "
             f"{fwd_ms / (FULL_SECONDS * 1e3):.4f} [{smi}]")
-    phase("times", 180, times)
+    phase("times", 240, times)
 
     tpu = "lookoncetohear_tpu/ops/pallas_attention.py"
     meta = {
@@ -775,7 +1045,10 @@ def main() -> int:
                for k, (src, rep) in meta.items()]
     log(f"engine: {json.dumps(res['engine'])}")
     log(f"full forward: {json.dumps(res['full_forward'])}")
-    log(f"bilstm_scan at 625 rows: {json.dumps(res['bilstm_scan_625'])}")
+    log(f"engine, CUDA graph: {json.dumps(res['graph'])}")
+    log(f"EmbedNet: {json.dumps(res['enroll'])}")
+    for k in ("625", "enroll_intra", "enroll_inter"):
+        log(f"bilstm_scan_{k}: {json.dumps(res['bilstm_scan_' + k])}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

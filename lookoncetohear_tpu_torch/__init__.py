@@ -1,14 +1,17 @@
-"""PyTorch/CUDA port of the streaming target-speech separator.
+"""PyTorch/CUDA port of the target-speech hearing system: the
+enrollment net and the streaming separator.
 
 Mirrors the layout of the JAX package `lookoncetohear_tpu`: each module
-here has a counterpart of the same path there. The port imports
-`torch`, `numpy` and the standard library only. The Pallas kernels of
-the serving step are replaced by CUDA kernels for Hopper (`csrc/`),
-built with one `nvcc` call at first use (`_build.py`).
+here has a counterpart of the same path there (`entry.py` and
+`bench.py` stand for the repo root's `__graft_entry__.py` and
+`bench.py`). The port imports `torch`, `numpy` and the standard library
+only. The Pallas kernels are replaced by CUDA kernels for Hopper
+(`csrc/`), built with one `nvcc` call at first use (`_build.py`).
 
-Entry points (`models.net.Net`, `serve.engine.StreamingEngine`) run on
-the GPU unless the caller passes `device="cpu"`; on the CPU every
-kernel wrapper uses its plain PyTorch version.
+Entry points (`models.net.Net`, `EmbedNet`, `OfflineSeparatorNet`,
+`serve.engine.StreamingEngine`, `entry.entry`) run on the GPU unless
+the caller passes `device="cpu"`; on the CPU every kernel wrapper uses
+its plain PyTorch version.
 """
 
 

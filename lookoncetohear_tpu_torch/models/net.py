@@ -1,10 +1,15 @@
-"""Public streaming model wrapper (counterpart of `Net` and `mod_pad` in
+"""Public model wrappers (counterpart of
 `lookoncetohear_tpu/models/net.py`), with the same config field names
-as the JAX package and the reference's `model_params` JSON.
+as the JAX package and the reference's `model_params` JSON:
 
-`step` (one 8 ms chunk), `predict` and `forward` (the JAX `__call__`:
-a whole utterance) are inference only. The direction head, training
-and the enrollment nets wait for later slices.
+  * `Net`, the streaming separator, and `mod_pad`: `step` (one 8 ms
+    chunk), `predict` and `forward` (the JAX `__call__`: a whole
+    utterance);
+  * `EmbedNet`, the enrollment net (noisy binaural snippet -> d-vector);
+  * `OfflineSeparatorNet`, the offline 2-source separator.
+
+All are inference only. The direction head and training wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -13,8 +18,11 @@ import torch
 from torch import nn
 
 from lookoncetohear_tpu_torch import resolve_device
+from lookoncetohear_tpu_torch.models.offline_tfgridnet import (
+    EmbedTFGridNet, OfflineTFGridNetTrunk, std_normalize)
 from lookoncetohear_tpu_torch.models.streaming_tfgridnet import \
     StreamingTFGridNet
+from lookoncetohear_tpu_torch.ops import stft as stft_ops
 
 
 def mod_pad(x: torch.Tensor, chunk_size: int, pad: tuple[int, int]):
@@ -97,3 +105,52 @@ class Net(nn.Module):
         chunk plus lookahead; returns ([B, S, chunk], state). The ring
         leaves of `state` are updated in place."""
         return self.tfgridnet(x_chunk, embed, state)
+
+
+class EmbedNet(nn.Module):
+    """Enrollment network with the reference constructor signature
+    (configs/embed*.json model_params). Built on `device` ("cuda" by
+    default; raises without a card unless device="cpu" is passed)."""
+
+    def __init__(self, embed_dim: int = 256, num_ch: int = 2,
+                 n_fft: int = 128, stride: int = 64, num_blocks: int = 3,
+                 device=None):
+        super().__init__()
+        self.net = EmbedTFGridNet(embed_dim=embed_dim, n_fft=n_fft,
+                                  stride=stride, n_imics=num_ch,
+                                  n_layers=num_blocks)
+        self.to(resolve_device(device))
+
+    @torch.no_grad()
+    def forward(self, x):
+        """x: [B, M, N] noisy binaural enrollment -> [B, embed_dim]."""
+        return self.net(x)
+
+
+class OfflineSeparatorNet(nn.Module):
+    """Offline 2-source separator (the reference's tfgridnet_orig `Net`):
+    trunk features -> 3x3 conv to (real, imag) per source -> centered
+    iSTFT, rescaled by the input's std."""
+
+    def __init__(self, num_ch: int = 1, n_fft: int = 128, stride: int = 64,
+                 num_blocks: int = 6, n_srcs: int = 2, device=None):
+        super().__init__()
+        self.n_fft, self.stride, self.n_srcs = n_fft, stride, n_srcs
+        self.trunk = OfflineTFGridNetTrunk(
+            n_fft=n_fft, stride=stride, n_imics=num_ch,
+            n_layers=num_blocks, lstm_hidden_units=64)
+        self.deconv = nn.Conv2d(self.trunk.emb_dim, 2 * n_srcs, 3,
+                                padding=1)
+        self.to(resolve_device(device))
+
+    @torch.no_grad()
+    def forward(self, x):
+        """x: [B, M, N] -> [B, n_srcs, N]."""
+        xn, std = std_normalize(x)
+        y = self.deconv(self.trunk(xn))                  # [B, 2S, T, F]
+        b, _, t, f = y.shape
+        y = y.reshape(b, self.n_srcs, 2, t, f)
+        spec = torch.complex(y[:, :, 0], y[:, :, 1])     # [B, S, T, F]
+        audio = stft_ops.istft_center(spec, self.n_fft, self.stride,
+                                      length=x.shape[-1])
+        return audio * std

@@ -20,10 +20,13 @@ from lookoncetohear_tpu_torch import _build
 KERNEL_HIDDEN = 64
 
 
-def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor):
-    """Plain PyTorch version: a loop over T, both directions at once."""
-    xp = xp.float()
-    w_hh = w_hh.float()
+def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
+                          dtype=torch.float32):
+    """Plain PyTorch version: a loop over T, both directions at once, in
+    `dtype` (float32 as the kernel; float64 to measure how far each
+    float32 version drifts from the exact recurrence)."""
+    xp = xp.to(dtype)
+    w_hh = w_hh.to(dtype)
     t_len, _, b, g4 = xp.shape
     hidden = g4 // 4
     h = xp.new_zeros((2, b, hidden))

@@ -51,6 +51,16 @@ def lstm_apply(params: LSTMParams, x, h0=None, c0=None):
     return torch.stack(ys, dim=1), (h, c)
 
 
+def bidir_scan_inputs(fwd: LSTMParams, bwd: LSTMParams, x):
+    """The recurrence's inputs for x [B, T, I]: xp [T, 2, B, 4H], the
+    input projections with both biases, direction 1 time-flipped, and
+    w_hh [2, H, 4H] (transposed)."""
+    xp_f = x @ fwd.w_ih.T + (fwd.b_ih + fwd.b_hh)
+    xp_b = x.flip(1) @ bwd.w_ih.T + (bwd.b_ih + bwd.b_hh)
+    w_hh = torch.stack([fwd.w_hh.T, bwd.w_hh.T], dim=0)     # [2, H, 4H]
+    return torch.stack([xp_f, xp_b], dim=0).permute(2, 0, 1, 3), w_hh
+
+
 def lstm_apply_bidir(fwd: LSTMParams, bwd: LSTMParams, x):
     """Bidirectional LSTM, both directions in one loop over T.
 
@@ -59,12 +69,7 @@ def lstm_apply_bidir(fwd: LSTMParams, bwd: LSTMParams, x):
     and is cast back to x's dtype. It goes through `bilstm_scan`, which
     launches the CUDA kernel for GPU tensors and runs the kernel's plain
     version for CPU tensors (`ops/bilstm_scan.py`)."""
-    xp_f = x @ fwd.w_ih.T + (fwd.b_ih + fwd.b_hh)
-    xp_b = x.flip(1) @ bwd.w_ih.T + (bwd.b_ih + bwd.b_hh)
-    w_hh = torch.stack([fwd.w_hh.T, bwd.w_hh.T], dim=0)     # [2, H, 4H]
-    # [T, 2, B, 4H], direction 1 time-flipped
-    xp = torch.stack([xp_f, xp_b], dim=0).permute(2, 0, 1, 3)
-    ys, c_t = bilstm_scan(xp, w_hh)
+    ys, c_t = bilstm_scan(*bidir_scan_inputs(fwd, bwd, x))
     ys = ys.to(x.dtype)
     h_t = ys[-1]
     c_t = c_t.to(x.dtype)

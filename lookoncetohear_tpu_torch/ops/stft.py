@@ -89,3 +89,41 @@ def fb_decode_frame(spec_frame: torch.Tensor, n_fft: int,
     fb = stft_filterbank(n_fft, n_fft, stride, spec_frame.device,
                          spec_frame.dtype)
     return torch.einsum("...f,fk->...k", spec_frame, fb)
+
+
+# ---------------------------------------------------------------------------
+# Centered STFT (torch.stft / espnet STFTEncoder semantics)
+# ---------------------------------------------------------------------------
+
+
+def hann_window(win_length: int, device=None) -> torch.Tensor:
+    """Periodic Hann in float32, computed in float64 and rounded as the
+    JAX package does (torch.hann_window's values to one rounding)."""
+    n = torch.arange(win_length, dtype=torch.float64, device=device)
+    return (0.5 * (1.0 - torch.cos(2.0 * np.pi * n / win_length))).float()
+
+
+def stft_center(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Centered STFT: reflect pad by n_fft//2, periodic Hann, one-sided
+    rfft. x: [..., N] -> complex [..., T, F], T = N//hop + 1, F =
+    n_fft//2 + 1 (frames-major, like espnet's encoder output)."""
+    pad = n_fft // 2
+    lead = x.shape[:-1]
+    x = torch.nn.functional.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad),
+                                mode="reflect").reshape(*lead, -1)
+    frames = frame_signal(x, n_fft, hop) * hann_window(n_fft, x.device)
+    return torch.fft.rfft(frames, dim=-1)
+
+
+def istft_center(spec: torch.Tensor, n_fft: int, hop: int,
+                 length: int | None = None) -> torch.Tensor:
+    """Inverse of `stft_center`: windowed irfft, overlap-add, division by
+    the window envelope (floored at 1e-11), center trim, and a cut to
+    `length` samples when given. spec: complex [..., T, F]."""
+    w = hann_window(n_fft, spec.device)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * w
+    out = overlap_add(frames, hop)
+    env = overlap_add((w * w).expand(spec.shape[-2], n_fft), hop)
+    out = out / torch.clamp(env, min=1e-11)
+    out = out[..., n_fft // 2:]
+    return out if length is None else out[..., :length]

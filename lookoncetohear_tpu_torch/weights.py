@@ -14,8 +14,11 @@ kernel"). Layout rules, flax -> torch:
                                        (the deconv too: it is a VALID
                                        conv on the stored kernel)
   LSTM w_ih/w_hh/b_ih/b_hh          -> same name, same layout
-  LayerNorm scale / bias            -> weight / bias
+  LayerNorm, GroupNorm1 scale / bias -> weight / bias
   PReLU alpha (1,)                  -> weight
+  espnet norms' gamma / beta, the offline nets' ConvTranspose1d
+  weight [in, out, k]               -> same name, same layout
+  HeadConv1x1 kernel [C, out]       -> weight [out, C] (the Dense rule)
 """
 
 from __future__ import annotations
@@ -70,6 +73,13 @@ def _torch_value(flax_key: str, arr: np.ndarray) -> np.ndarray:
             return arr.T
         raise ValueError(f"{flax_key}: unexpected kernel rank {arr.ndim}")
     return arr
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a `p//` npz checkpoint into `model` strictly: every key maps
+    to a parameter of the same shape, and every parameter is loaded."""
+    model.load_state_dict(params_from_jax(load_npz(path)), strict=True)
+    return model
 
 
 def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:

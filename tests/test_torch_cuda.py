@@ -303,3 +303,102 @@ def test_steps_after_a_full_pass_on_the_card(dev):
             ys.append(y)
         outs.append(torch.cat(ys, -1).cpu())
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
+
+
+# ---- the CUDA-graph engine and the enrollment net ----------------------------
+
+# F=65 (e=8, v dim 16): a size every ring kernel takes, with B2's H=64
+GRAPH_NET = dict(embed_dim=32, stft_chunk_size=96, stft_pad_size=32,
+                 num_ch=2, D=32, L=2, B=2, H=64, local_atten_len=5,
+                 use_attn=True, chunk_causal=True)
+
+
+def _engine_pair(dev, dtype, kv_dtype, n=4):
+    from lookoncetohear_tpu_torch.models.net import Net
+    from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
+    torch.manual_seed(0)
+    net = Net(**GRAPH_NET, device="cpu")
+    engs = [StreamingEngine(net, max_streams=n, dtype=dtype,
+                            kv_dtype=kv_dtype, cuda_graph=g)
+            for g in (False, True)]
+    emb = torch.randn(n + 1, GRAPH_NET["embed_dim"],
+                      generator=torch.Generator().manual_seed(1))
+    for eng in engs:
+        for s in range(n):
+            eng.add_stream(s, emb[s].numpy())
+    return engs, emb
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.int8), (torch.float32, torch.int8),
+    (torch.float32, torch.bfloat16)], ids=str)
+def test_graph_engine_matches_eager(dev, dtype, kv_dtype):
+    """10 steps (the ring wraps twice) through the masked graph (step 0,
+    an add_stream at step 3, slot 2 inactive from step 6) and the
+    all-primed graph: the output and every carried tensor bit-identical
+    to the eager engine's, which runs the same kernels on its own
+    state."""
+    (eager, graph), emb = _engine_pair(dev, dtype, kv_dtype)
+    x = torch.randn(10, 4, 2, GRAPH_NET["stft_chunk_size"],
+                    generator=torch.Generator().manual_seed(2))
+    for i in range(10):
+        for eng in (eager, graph):
+            if i == 3:
+                eng.add_stream(1, emb[4].numpy())
+            if i == 6:
+                eng.remove_stream(2)
+        assert torch.equal(graph.step(x[i]), eager.step(x[i]))
+        for a, b in zip(eager._carried(), graph._carried()):
+            assert torch.equal(a, b)
+    assert set(graph._graphs) == {False, True}
+
+
+def test_graph_output_survives_the_next_step(dev):
+    (_, graph), _ = _engine_pair(dev, torch.float32, None)
+    x = torch.randn(3, 4, 2, GRAPH_NET["stft_chunk_size"], device=dev)
+    graph.step(x[0])
+    y1 = graph.step(x[1])
+    keep = y1.clone()
+    graph.step(x[2])
+    assert torch.equal(y1, keep)
+
+
+def test_pipelined_and_benchmarks_on_the_card(dev):
+    """step_pipelined + drain == step from the same state (every slot
+    primed), bit for bit, from host chunks; benchmark_device leaves the
+    live state."""
+    (_, eng), _ = _engine_pair(dev, torch.bfloat16, torch.int8)
+    x = torch.randn(7, 4, 2, GRAPH_NET["stft_chunk_size"],
+                    generator=torch.Generator().manual_seed(3)).numpy()
+    eng.step(x[0])
+    saved = [t.clone() for t in eng._carried()]
+    ref = [eng.step(c).float().cpu().numpy() for c in x]
+    for t, s in zip(eng._carried(), saved):
+        t.copy_(s)
+    got = [y for y in (eng.step_pipelined(c, depth=3) for c in x)
+           if y is not None] + eng.drain()
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    before = [t.clone() for t in eng._carried()]
+    rep = eng.benchmark_device(n_short=3, n_long=9, repeats=2)
+    assert rep["streams"] == 4 and rep["device_best_ms"] > 0
+    for t, b in zip(eng._carried(), before):
+        assert torch.equal(t, b)
+
+
+def test_embed_net_on_the_card_matches_the_cpu(dev):
+    """EmbedNet from its checkpoint, 1 s binaural enrollment: 6 B2
+    launches, d-vector within 1e-4 of the CPU net's peak (float32, TF32
+    off)."""
+    from lookoncetohear_tpu_torch.models.net import EmbedNet
+    from lookoncetohear_tpu_torch.weights import load_checkpoint
+    ckpt = "checkpoints/embed_r5_5k_best.npz"
+    x = torch.randn(2, 2, 16000, generator=torch.Generator().manual_seed(4))
+    cpu = load_checkpoint(EmbedNet(device="cpu"), ckpt)(x)
+    before = bilstm_scan_cuda.launches
+    gpu = load_checkpoint(EmbedNet(), ckpt)(x.to(dev))
+    assert bilstm_scan_cuda.launches == before + 6
+    peak = cpu.abs().max().item()
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4 * peak)
