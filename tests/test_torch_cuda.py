@@ -14,6 +14,9 @@ package's bound for the Pallas step at the flagship shapes), over an
 int8 ring rtol/atol 2e-5; a bf16 q or ring atol 2e-2.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -402,3 +405,56 @@ def test_embed_net_on_the_card_matches_the_cpu(dev):
     assert bilstm_scan_cuda.launches == before + 6
     peak = cpu.abs().max().item()
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4 * peak)
+
+
+def _eval_args(tmp_path, sub, mode, device):
+    """The eval CLI's arguments for the first 4 scenes of the 5k test
+    split in `mode` ("oracle" or "two-stage"), into tmp_path/sub."""
+    from lookoncetohear_tpu_torch import ts_hear_test
+    with open("configs/tsh_synthetic_5k.json") as f:
+        cfg = json.load(f)
+    cfg["test_data_args"]["n_samples"] = 4
+    config = tmp_path / "tsh_4.json"
+    config.write_text(json.dumps(cfg))
+    enroll = ["--enroll_config", "", "--enroll_run_dir", ""]
+    if mode == "two-stage":
+        enroll = ["--enroll_config", "configs/embed_synthetic_5k.json",
+                  "--enroll_run_dir", "runs/embed_r5_5k", "--enroll_ckpt",
+                  "checkpoints/embed_r5_5k_best.npz"]
+    return ts_hear_test.parse_args(
+        ["--config", str(config), "--run_dir", str(tmp_path / sub),
+         "--ckpt", "checkpoints/tsh_r5_5k_best.npz", "--num_workers", "0",
+         "--device", device] + enroll)
+
+
+@pytest.mark.parametrize("mode", ["oracle", "two-stage"])
+def test_eval_on_the_card_matches_the_cpu(dev, tmp_path, mode):
+    """The eval CLI over 4 scenes of the 5k split on the card and on the
+    CPU: every CSV row agrees (dB columns 1e-3, embedding_sim 1e-5, the
+    scene's metadata equal)."""
+    from lookoncetohear_tpu_torch import eval_check, ts_hear_test
+    csvs = []
+    for device in ("cuda", "cpu"):
+        args = _eval_args(tmp_path, device, mode, device)
+        ts_hear_test.run(args)
+        name = os.path.basename(args.enroll_run_dir) or "clean"
+        csvs.append(eval_check.read_csv(
+            str(tmp_path / device / f"results_test_{name}.csv")))
+    res = eval_check.compare(*csvs, tol={
+        "si_snr_i": 1e-3, "output_sisnr": 1e-3, "embedding_sim": 1e-5})
+    assert res["rows"] == 4 and not res["failures"], eval_check.report(res)
+
+
+def test_eval_cli_refusals_on_the_card(dev, tmp_path):
+    """--embed_from_wav and checkpoints that are not p// npz files are
+    refused on the card too, before any work."""
+    from lookoncetohear_tpu_torch import ts_hear_test
+    args = _eval_args(tmp_path, "r", "oracle", "cuda")
+    args.embed_from_wav = True
+    with pytest.raises(ValueError, match="resemblyzer"):
+        ts_hear_test.run(args)
+    args.embed_from_wav = False
+    for ckpt in (str(tmp_path / "best.ckpt"), str(tmp_path)):
+        args.ckpt = ckpt
+        with pytest.raises(ValueError, match="npz"):
+            ts_hear_test.run(args)

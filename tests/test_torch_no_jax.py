@@ -1,7 +1,7 @@
 """The port and chip_smoke.py run where JAX is not installed: no import
-of jax, flax, optax or the JAX package anywhere in them, and a CPU
-engine step with jax blocked from importing. chip_smoke.py reports no
-result without a card or without the package beside it."""
+of jax, flax, optax, the JAX package, pandas or scipy anywhere in them,
+and a CPU engine step with jax blocked from importing. chip_smoke.py
+reports no result without a card or without the package beside it."""
 
 import ast
 import pathlib
@@ -13,7 +13,10 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "lookoncetohear_tpu"}
+# the machine with the card has no JAX and no pandas; scipy is not a
+# dependency of the port
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "lookoncetohear_tpu",
+             "pandas", "scipy"}
 FILES = sorted((ROOT / "lookoncetohear_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
