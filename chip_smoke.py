@@ -51,8 +51,27 @@ full forward; and `EmbedNet` on 5 s. Last, the eval paths:
   * the serving-precision study (`kv_quality.run`): those 64 scenes as
     64 streams of one graph engine at f32, bf16 and bf16 + int8, the
     int8 serving form within 0.3 dB of float32;
-then the loaders' fork server and resource tracker are stopped and
-reaped, and no child process of this script may be left.
+Then training, every LSTM recurrence on the port's training kernels
+(the state-saving forward and the backward of `csrc/bilstm_scan.cu`):
+  * both kernels against their plain versions at the committed
+    training configs' four scan shapes (random inputs made on the card);
+  * one `TSETask` and one `EmbedTask` loss-and-backward from the
+    committed checkpoints on a 2 x 1 s batch of the synthetic train
+    split, on the card against the CPU, with the launch counts a step
+    implies (a forward and a backward of each scan);
+  * the trainer CLI (`trainer.run`) on both committed training configs
+    at their full width and batch of 8 x 5 s, for 3 training batches
+    and 1 validation batch; the best checkpoint loads strictly into a
+    fresh model and has the committed checkpoint's keys and shapes;
+  * times: 10 steps of a seeded random TSE model on one fixed 8 x 5 s
+    batch (the loss must fall) and 4 of `EmbedTask`, each with a
+    profile (no cuDNN RNN kernel, the port's kernels as counted) and the
+    same step with every block checkpointed, and both training kernels
+    at the four shapes beside their plain versions and cuDNN's
+    `nn.LSTM` forward + backward.
+Inference phases run under `torch.no_grad()`, the training phases with
+gradients. Then the loaders' fork server and resource tracker are
+stopped and reaped, and no child process of this script may be left.
 
 Every phase prints its elapsed seconds and has a time limit; a failed
 phase prints its traceback and exits 1 before the result. The last
@@ -122,6 +141,33 @@ ENROLL_BATCH = 2
 TOL_ENROLL = 1e-4
 OP_RING_STEPS = 12            # the op-level int8 ring path
 FULL_SECONDS = 5.0
+# training: the committed training configs' scan shapes, (T, D, rows):
+# TSE intra [97, 2, 8 x 625 frames] and inter [625, 1, 8 x 97 bins]
+# (from a carried state), EmbedNet intra [62, 2, 8 x 1251] and inter
+# [1248, 2, 8 x 65]
+TRAIN_SCANS = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
+               "embed_intra": (62, 2, 10008),
+               "embed_inter": (1248, 2, 520)}
+# training kernels vs their plain versions on the same inputs, of each
+# output's peak (gradients scale with the incoming gradient; the cell
+# state with the chain): float32 in another order, as B2 (TOL_LSTM up
+# to 97 steps, TOL_LSTM_LONG beyond)
+# one training step on the card vs the CPU, TF32 off: the loss 1e-4
+# relative to the CPU's float32 run; every gradient within 1e-3 of
+# max(its peak, 1e-3 of the model's largest peak) of the CPU's float64
+# run of the same step (the card measured up to 5.2e-4 from float64, so
+# 1e-3 leaves room both ways). A 3-block network of 62- to 1,248-step
+# recurrences, T x T softmaxes and PReLUs in float32; the floor is for
+# tensors whose true gradient is 0 (the K LayerNorm's shift, which
+# softmax ignores). The CPU's own float32 run is logged beside it as a
+# witness only: EmbedNet's attention PReLU slopes are sums with heavy
+# cancellation and lie up to 1.8e-3 of their peak from float64 there
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+TRAIN_CHECK_SECONDS = 1.0
+TRAIN_CHECK_BATCH = 2
+TRAIN_FRAC = 0.005            # 3 of the 640 training batches, 1 val batch
+TRAIN_STEPS = 10              # steps on one fixed batch, seeded init
 # the eval phases: the first 64 scenes of the 5k test split, rendered by
 # 8 workers, as the eval CLI does by default
 TSH_5K = os.path.join(ROOT, "configs", "tsh_synthetic_5k.json")
@@ -133,13 +179,15 @@ EVAL_WORKERS = 8
 KV_COST_DB = 0.3
 # counter name -> the kernel's name in a profiler trace
 TRACE_NAMES = {
-    "bilstm_scan": "bilstm_scan_kernel<64>",
+    "bilstm_scan": "bilstm_scan_kernel<64, false>",
+    "bilstm_scan_fwd_train": "bilstm_scan_kernel<64, true>",
+    "bilstm_scan_bwd": "bilstm_scan_bwd_kernel<64>",
     "ring_int8_step": "ring_int8_step_kernel<__nv_bfloat16>",
     "attn_step_f32": "attn_step_kernel<float, float>",
     "attn_step_bf16": "attn_step_kernel<__nv_bfloat16, __nv_bfloat16>",
     "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>"}
-PORT_KERNELS = ("bilstm_scan_kernel", "ring_int8_step_kernel",
-                "attn_step_kernel")
+PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_scan_bwd_kernel",
+                "ring_int8_step_kernel", "attn_step_kernel")
 # traces of a profile at most: eager-engine traces holding 29 of 10
 # steps' 30 B2 launches came back in two runs of this script
 TRACE_TRIES = 3
@@ -152,12 +200,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def phase(name: str, limit_s: int, fn):
-    """Run one phase under a watchdog; exit 1 on any failure."""
+def phase(name: str, limit_s: int, fn, grad: bool = False):
+    """Run one phase under a watchdog, with autograd on only for a
+    training phase (`grad`); exit 1 on any failure."""
+    import torch
     t0 = time.perf_counter()
     faulthandler.dump_traceback_later(limit_s, exit=True)
     try:
-        out = fn()
+        with torch.set_grad_enabled(grad):
+            out = fn()
     except Exception:
         traceback.print_exc()
         log(f"[{name}] FAILED after {time.perf_counter() - t0:.1f} s")
@@ -288,7 +339,9 @@ def main() -> int:
         from lookoncetohear_tpu_torch.ops.attn_step import (
             VARIANTS, attention_step_cuda, attention_step_reference)
         from lookoncetohear_tpu_torch.ops.bilstm_scan import (
-            bilstm_scan_cuda, bilstm_scan_reference)
+            bilstm_scan_backward_reference, bilstm_scan_bwd_cuda,
+            bilstm_scan_cuda, bilstm_scan_reference,
+            bilstm_scan_train_cuda, scan_weight_grad)
         from lookoncetohear_tpu_torch.ops.lstm import bidir_scan_inputs
         from lookoncetohear_tpu_torch.ops.ring_step import (
             arrival_counter, ring_attend_int8_step_cuda,
@@ -310,7 +363,8 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     attn_names = list(VARIANTS.values())
-    res: dict = {k: {} for k in ["bilstm_scan", "ring_int8_step"]
+    res: dict = {k: {} for k in ["bilstm_scan", "bilstm_scan_fwd_train",
+                                 "bilstm_scan_bwd", "ring_int8_step"]
                  + attn_names}
     launch_counts: dict = {}
 
@@ -320,6 +374,8 @@ def main() -> int:
 
     def reset_counts():
         bilstm_scan_cuda.launches = 0
+        bilstm_scan_train_cuda.launches = 0
+        bilstm_scan_bwd_cuda.launches = 0
         ring_attend_int8_step_cuda.launches = 0
         attention_step_cuda.launches = 0
         for k in attn_names:
@@ -327,6 +383,8 @@ def main() -> int:
 
     def read_counts():
         return dict(bilstm_scan=bilstm_scan_cuda.launches,
+                    bilstm_scan_fwd_train=bilstm_scan_train_cuda.launches,
+                    bilstm_scan_bwd=bilstm_scan_bwd_cuda.launches,
                     ring_int8_step=ring_attend_int8_step_cuda.launches,
                     **attention_step_cuda.variant_launches)
 
@@ -348,7 +406,7 @@ def main() -> int:
             f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
             f"{torch.__version__}, CUDA {torch.version.cuda}")
         return smi
-    smi = phase("device", 20, device)
+    smi = phase("device", 10, device)
 
     # ---- 2. build: one nvcc call for csrc/*.cu -------------------------
     def build():
@@ -358,7 +416,7 @@ def main() -> int:
             f"{b.get('command', b['path'])}")
         for line in b["ptxas"]:
             log(f"  {line}")
-    phase("build", 120, build)
+    phase("build", 60, build)
 
     # ---- 3. BiLSTM kernel vs plain ------------------------------------
     def lstm_check():
@@ -380,7 +438,7 @@ def main() -> int:
                 raise AssertionError(f"bilstm_scan differs: {err}")
             errs.append(err)
         res["bilstm_scan"]["max_abs_err"] = max(errs)
-    phase("bilstm_scan vs plain", 40, lstm_check)
+    phase("bilstm_scan vs plain", 20, lstm_check)
 
     # ---- 4. int8 ring step kernel vs plain ------------------------------
     b, f, nh, e, vd, wp, w = STREAMS, 97, 4, 6, 16, 56, 50
@@ -455,7 +513,7 @@ def main() -> int:
                 f"after each; max|out diff| = {worst:.3e} ({tol})")
             errs.append(worst)
         res["ring_int8_step"]["max_abs_err"] = max(errs)
-    phase("ring_int8_step vs plain", 60, ring_check)
+    phase("ring_int8_step vs plain", 20, ring_check)
 
     # ---- 5. ring attention kernel (B3, B4) vs plain ---------------------
     def attn_inputs(rows, qdt, kvdt, seed, dk=ATTN["dk"]):
@@ -498,7 +556,7 @@ def main() -> int:
                         f"{adk}: max|kernel - plain| = {err:.3e} ({tol})")
                     errs.append(err)
             res[name]["max_abs_err"] = max(errs)
-    phase("attn_step vs plain", 60, attn_check)
+    phase("attn_step vs plain", 20, attn_check)
 
     # ---- 6. the paths ---------------------------------------------------
     def load():
@@ -508,7 +566,7 @@ def main() -> int:
         log(f"  {CKPT}: {len(sd)} tensors, "
             f"{sum(v.numel() for v in sd.values())} params")
         return sd, net
-    sd, net = phase("load checkpoint", 20, load)
+    sd, net = phase("load checkpoint", 10, load)
 
     # ---- the enrollment net ------------------------------------------------
     enroll: dict = {}
@@ -554,7 +612,7 @@ def main() -> int:
             f"{err / peak:.3e} (tolerance {TOL_ENROLL}); launches: "
             f"bilstm_scan {counts['bilstm_scan']} (3 blocks x intra and "
             f"inter, no other kernel)")
-    phase("path: EmbedNet GPU vs CPU", 60, enroll_check)
+    phase("path: EmbedNet GPU vs CPU", 30, enroll_check)
 
     def scan_vs_plain(xp, w_hh, what, c_of_peak=False):
         """B2 against its plain version on the same card tensors (both
@@ -597,7 +655,7 @@ def main() -> int:
         res["bilstm_scan"]["max_abs_err"] = max(
             res["bilstm_scan"]["max_abs_err"], *errs)
         del enroll["rnn_inputs"]
-    phase("bilstm_scan vs plain, enrollment shapes", 40, lstm_enroll_check)
+    phase("bilstm_scan vs plain, enrollment shapes", 20, lstm_enroll_check)
 
     # the eval's batch of 4 x 5 s (phase 8): the full forward's scan and
     # EmbedNet's intra and inter scans; the random inputs are kept for
@@ -651,7 +709,8 @@ def main() -> int:
                                       True))
         res["bilstm_scan"]["max_abs_err"] = max(
             res["bilstm_scan"]["max_abs_err"], *errs)
-    phase("bilstm_scan vs plain, eval shapes", 40, lstm_eval_check)
+    phase("bilstm_scan vs plain, eval shapes", 30, lstm_eval_check)
+
     emb = rng.standard_normal((STREAMS, 256)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     t_ax = np.arange(PATH_STEPS * 128) / 16000.0
@@ -724,9 +783,9 @@ def main() -> int:
             f"from the same state: max|GPU - CPU| / peak = {worst:.3e} "
             f"(tolerance {TOL_PATH}); float state within {TOL_STATE}; "
             f"{flips} int8 ring entries off by one in {steps} steps")
-    phase("path: GPU engine vs CPU engine", 40,
+    phase("path: GPU engine vs CPU engine", 15,
           lambda: path_vs_cpu(torch.int8, "ring_int8_step"))
-    phase("path: f32-ring GPU engine vs CPU engine", 40,
+    phase("path: f32-ring GPU engine vs CPU engine", 15,
           lambda: path_vs_cpu(None, "attn_step_f32"))
 
     def streamed_vs_full():
@@ -762,7 +821,7 @@ def main() -> int:
             f"chunk k - full chunk k-1| = {err:.3e} (atol {TOL_STREAMED}); "
             f"max|GPU full - CPU full| / peak = {err_cpu / peak:.3e} "
             f"(tolerance {TOL_PATH})")
-    phase("path: streamed == full forward on the card", 40,
+    phase("path: streamed == full forward on the card", 15,
           streamed_vs_full)
 
     xs = torch.from_numpy(chunks_of(STREAMS, PATH_STEPS, 2)).to(dev)
@@ -793,14 +852,14 @@ def main() -> int:
             f"|y| {y.abs().max().item():.3f}; launches: bilstm_scan "
             f"{counts['bilstm_scan']}, {kernel} {counts[kernel]} (3 blocks "
             f"x {steps} steps each, no other kernel)")
-    phase("path: 64-stream bf16 engine", 30, lambda: path_64(
+    phase("path: 64-stream bf16 engine", 10, lambda: path_64(
         "bf16 + int8 K/V", torch.bfloat16, torch.int8, "ring_int8_step",
         PATH_STEPS))
-    phase("path: 64-stream f32 ring", 30, lambda: path_64(
+    phase("path: 64-stream f32 ring", 10, lambda: path_64(
         "float32 ring", torch.float32, None, "attn_step_f32", PATH_STEPS))
-    phase("path: 64-stream bf16 ring", 30, lambda: path_64(
+    phase("path: 64-stream bf16 ring", 10, lambda: path_64(
         "bf16 ring", torch.bfloat16, None, "attn_step_bf16", PATH_STEPS))
-    phase("path: 64-stream f32 + bf16 ring", 30, lambda: path_64(
+    phase("path: 64-stream f32 + bf16 ring", 10, lambda: path_64(
         "float32 + bf16 ring", torch.float32, torch.bfloat16,
         "attn_step_f32_bf16kv", FLOAT_PATH_STEPS))
 
@@ -842,7 +901,7 @@ def main() -> int:
                 f"{OP_RING_STEPS} steps through the wrap: ring, scales and "
                 f"cursor bit-exact with the CPU op, max|out diff| "
                 f"{worst:.3e}; {name} launched {counts[name]} times")
-    phase("path: int8 op ring (B4)", 30, op_ring_int8)
+    phase("path: int8 op ring (B4)", 10, op_ring_int8)
 
     # ---- the CUDA-graph engine ------------------------------------------
     graphs = {}
@@ -906,7 +965,7 @@ def main() -> int:
             f"graphs x ({WARMUP_STEPS} warm-up steps + 1 capture)): the "
             f"replays ran no Python")
     for label, dtype, kv_dtype, kernel in graph_rings:
-        phase(f"graph: {label} graph vs eager engine", 20,
+        phase(f"graph: {label} graph vs eager engine", 10,
               lambda a=(label, dtype, kv_dtype, kernel): graph_vs_eager(*a))
 
     def look_once_then_hear():
@@ -923,7 +982,7 @@ def main() -> int:
         log(f"  EmbedNet d-vectors -> slots 0-{ENROLL_BATCH - 1} of the "
             f"graph engine: 6 steps finite, zero until primed, then peak "
             f"|y| {ys[1:, :2].abs().max().item():.3f}")
-    phase("look once, then hear", 20, look_once_then_hear)
+    phase("look once, then hear", 10, look_once_then_hear)
 
     def pipelined():
         """step_pipelined(depth=4) + drain() return exactly the outputs
@@ -941,7 +1000,7 @@ def main() -> int:
             raise AssertionError("pipelined outputs differ from step's")
         log(f"  {len(host)} steps, depth 4: step_pipelined + drain == step, "
             f"bit for bit, in order")
-    phase("pipelined == step", 20, pipelined)
+    phase("pipelined == step", 10, pipelined)
 
     # ---- 7. times (CUDA events) ----------------------------------------
     def engine_times(label, kernel, absent=()):
@@ -1153,14 +1212,17 @@ def main() -> int:
         log(f"  Net.forward, 1 stream x {FULL_SECONDS:g} s, float32: "
             f"{fwd_ms:.1f} ms from call to synchronize (median of 2), RTF "
             f"{fwd_ms / (FULL_SECONDS * 1e3):.4f} [{smi}]")
-    phase("times", 110, times)
+    phase("times", 75, times)
 
     # ---- 8. the two-stage eval and the serving-precision study ---------
     def eval_5k(mode, ref, enroll_args, per_batch):
         """The port's eval CLI (`ts_hear_test.run`) on the card over the
         first EVAL_SCENES scenes of the 5k test split, each row held to
-        the same row of the JAX package's CSV (`eval_check.tolerances`); B2
-        launched `per_batch` times a batch of 4 and no other kernel."""
+        the same row of the JAX package's CSV (`eval_check.tolerances`);
+        the kernels launched `per_batch` ({counter: launches}) times a
+        batch of 4 and no other kernel: B2 for every BiLSTM, the
+        training forward for the separator's inter-time LSTM (a
+        625-frame scan from a carried state)."""
         from lookoncetohear_tpu_torch import eval_check, ts_hear_test
         os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "runs")) \
@@ -1183,7 +1245,8 @@ def main() -> int:
             enroll_cfg = os.path.basename(args.enroll_run_dir) or "clean"
             got = eval_check.read_csv(os.path.join(
                 tmp, f"results_test_{enroll_cfg}.csv"))
-        expect_counts(counts, {"bilstm_scan": per_batch * EVAL_SCENES // 4},
+        expect_counts(counts, {k: v * EVAL_SCENES // 4
+                               for k, v in per_batch.items()},
                       f"eval, {mode}")
         res = eval_check.compare(
             got, eval_check.read_csv(os.path.join(ROOT, ref))[:EVAL_SCENES])
@@ -1194,9 +1257,10 @@ def main() -> int:
         log(f"  {mode}, {EVAL_SCENES} scenes against {ref}: every row within "
             f"tolerance; {secs:.1f} s, {secs / EVAL_SCENES:.3f} s per scene "
             f"from call to return ({EVAL_WORKERS} workers rendering scenes "
-            f"included) [{smi}]; launches: bilstm_scan "
-            f"{counts['bilstm_scan']} ({per_batch} per batch of 4, no "
-            f"other kernel)")
+            f"included) [{smi}]; launches: "
+            + ", ".join(f"{k} {counts[k]} ({v} per batch of 4)"
+                        for k, v in per_batch.items())
+            + ", no other kernel")
         res["seconds"] = secs
         return res
 
@@ -1204,14 +1268,16 @@ def main() -> int:
         out = {}
         out["oracle"] = eval_5k(
             "oracle", "docs/results_r5/5k_oracle_results_test_clean.csv",
-            ["--enroll_config", "", "--enroll_run_dir", ""], 3)
+            ["--enroll_config", "", "--enroll_run_dir", ""],
+            {"bilstm_scan": 3, "bilstm_scan_fwd_train": 3})
         out["two-stage"] = eval_5k(
             "two-stage", "docs/results_r5/"
             "5k_twostage_results_test_embed_r5_5k.csv",
             ["--enroll_config", EMBED_5K, "--enroll_run_dir",
-             "runs/embed_r5_5k", "--enroll_ckpt", EMBED_CKPT], 3 + 6)
+             "runs/embed_r5_5k", "--enroll_ckpt", EMBED_CKPT],
+            {"bilstm_scan": 3 + 6, "bilstm_scan_fwd_train": 3})
         return out
-    evals = phase("eval: two-stage, 5k test split", 120, eval_both)
+    evals = phase("eval: two-stage, 5k test split", 60, eval_both)
 
     def serving_precision():
         """`kv_quality.run`: the first EVAL_SCENES test scenes as as many
@@ -1246,8 +1312,357 @@ def main() -> int:
             f"(limit {KV_COST_DB} dB); {secs:.1f} s with the scenes' "
             f"rendering [{smi}]")
         return means
-    kv_means = phase("eval: serving precision, 64 streams", 60,
+    kv_means = phase("eval: serving precision, 64 streams", 40,
                      serving_precision)
+
+    # ---- 9. training ------------------------------------------------------
+    # the training kernels at the training configs' scan shapes; the
+    # inputs are kept for the times
+    train_scans = {}
+
+    def train_scan_check():
+        """The state-saving forward (ys, every c, c_T) and the backward
+        (dxp, dh0, dc0, and dW_hh through its product) against their
+        plain versions on the same card tensors: random inputs made on
+        the card from a seed, a nonzero (h0, c0) where the scan carries
+        a state (the TSE inter-time LSTM). The backward of both versions
+        reads the kernel forward's ys and cs, so each is held alone."""
+        g = torch.Generator(device=dev).manual_seed(3)
+        fwd_err = bwd_err = 0.0
+        for key, (t_, nd, bb) in TRAIN_SCANS.items():
+            r = lambda *shape, k=0.5: torch.randn(  # noqa: E731
+                shape, generator=g, device=dev) * k
+            xp, w_hh = r(t_, nd, bb, 256), r(nd, 64, 256, k=0.3)
+            h0 = c0 = None
+            if key == "tse_inter":
+                h0, c0 = r(nd, bb, 64), r(nd, bb, 64)
+            dys, dct = r(t_, nd, bb, 64, k=1.0), r(nd, bb, 64, k=1.0)
+            tol = TOL_LSTM if t_ <= 97 else TOL_LSTM_LONG
+            got = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
+            plain = bilstm_scan_reference(xp, w_hh, torch.float32, h0, c0,
+                                          with_cs=True)
+            ys, _, cs = got
+            # a pass that keeps no gradient writes no cs, and the same
+            # ys and c_T bit for bit
+            lean = bilstm_scan_train_cuda(xp, w_hh, h0, c0, save_cs=False)
+            if lean[2] is not None or not (torch.equal(lean[0], ys)
+                                           and torch.equal(lean[1], got[1])):
+                raise AssertionError(f"{key}: the forward without cs differs")
+            del lean
+            gb = bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, ys, cs, dys, dct)
+            pb = bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs,
+                                                dys, dct)
+            gb = (*gb, scan_weight_grad(gb[0], ys, h0))
+            pb = (*pb, scan_weight_grad(pb[0], ys, h0))
+            torch.cuda.synchronize()
+            msg = []
+            for what, a, b_ in (("ys", got[0], plain[0]),
+                                ("c_T", got[1], plain[1]),
+                                ("cs", got[2], plain[2]),
+                                ("dxp", gb[0], pb[0]), ("dh0", gb[1], pb[1]),
+                                ("dc0", gb[2], pb[2]),
+                                ("dW_hh", gb[3], pb[3])):
+                err = (a - b_).abs().max().item()
+                peak = b_.abs().max().item()
+                if not (torch.isfinite(a).all() and err <= tol * max(1.0,
+                                                                     peak)):
+                    raise AssertionError(f"{key} {what}: {err} (peak "
+                                         f"{peak}, tolerance {tol} of "
+                                         f"max(1, peak))")
+                if what in ("ys", "c_T", "cs"):
+                    fwd_err = max(fwd_err, err)
+                elif what != "dW_hh":   # the product's, not the kernel's
+                    bwd_err = max(bwd_err, err)
+                msg.append(f"{what} {err:.2e}/{peak:.3g}")
+            log(f"  {key} xp {list(xp.shape)}"
+                + (", h0/c0" if h0 is not None else "") + ": max|kernel - "
+                f"plain| / peak: {', '.join(msg)} (tolerance {tol} of "
+                f"max(1, peak))")
+            train_scans[key] = (xp, w_hh, h0, c0, dys, dct, ys, cs)
+        res["bilstm_scan_fwd_train"]["max_abs_err"] = fwd_err
+        res["bilstm_scan_bwd"]["max_abs_err"] = bwd_err
+    phase("bilstm_scan training kernels vs plain", 60, train_scan_check)
+
+    from lookoncetohear_tpu_torch import utils as port_utils
+    from lookoncetohear_tpu_torch.data.loader import collate
+    from lookoncetohear_tpu_torch.train.trainer import (Trainer, build_task,
+                                                        to_device)
+    # (name, config, committed checkpoint, model class); per-step
+    # launches: 3 blocks x (intra, inter), a forward and a backward each
+    tasks = (("TSETask", TSH_5K, CKPT, Net),
+             ("EmbedTask", EMBED_5K, EMBED_CKPT, EmbedNet))
+    per_step = {"bilstm_scan_fwd_train": 6, "bilstm_scan_bwd": 6}
+
+    def host_batch(hp, n, seconds=None):
+        args = dict(hp.train_data_args)
+        if seconds is not None:
+            args["duration"] = seconds
+        ds = port_utils.import_attr(hp.train_dataset)(**args)
+        return collate([ds[i] for i in range(n)])
+
+    def train_step_check():
+        """One loss-and-backward of each task from its committed
+        checkpoint on the first TRAIN_CHECK_BATCH scenes (cut to
+        TRAIN_CHECK_SECONDS) of the synthetic train split, on the card
+        and on the CPU, TF32 off: the loss agrees with the CPU's float32
+        run, every gradient with its float64 run, and the card's step
+        launched the training kernels `per_step` times and no other
+        kernel of the port."""
+        for name, cfg, ckpt, _ in tasks:
+            hp = port_utils.Params(cfg)
+            host = host_batch(hp, TRAIN_CHECK_BATCH, TRAIN_CHECK_SECONDS)
+            out = {}
+            for d, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu64", torch.float64)):
+                task = build_task(hp)
+                dev_ = d[:3] if d != "cuda" else d
+                model = load_checkpoint(task.model, ckpt).to(dev_, dt)
+                batch = {k: v.to(dt) if v.is_floating_point() else v
+                         for k, v in to_device(task.device_batch(
+                             host, train=True), dev_).items()}
+                reset_counts()
+                with port_utils.full_float32():
+                    loss, _ = task.loss_and_metrics(batch, 0)
+                    loss.backward()
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                out[d] = (loss.item(), {n: p.grad.cpu().double() for n, p in
+                                        model.named_parameters()})
+            expect_counts(counts, per_step, f"{name} step")
+            (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+            g_64 = out["cpu64"][1]
+            if not (np.isfinite(l_gpu)
+                    and abs(l_gpu - l_cpu) <= TOL_TRAIN_LOSS * max(
+                        1.0, abs(l_cpu))):
+                raise AssertionError(f"{name}: loss {l_gpu} vs {l_cpu}")
+            floor = 1e-3 * max(g.abs().max().item() for g in g_64.values())
+            worst, worst_name, cpu_to64 = 0.0, "", 0.0
+            for n, g in g_64.items():
+                ref = max(g.abs().max().item(), floor)
+                err = (g_gpu[n] - g).abs().max().item()
+                if not (torch.isfinite(g_gpu[n]).all()
+                        and err <= TOL_TRAIN_GRAD * ref):
+                    raise AssertionError(
+                        f"{name}: grad {n} lies {err / ref:.3e} of "
+                        f"max(peak, floor) from float64")
+                cpu_to64 = max(cpu_to64,
+                               (g_cpu[n] - g).abs().max().item() / ref)
+                if err / ref > worst:
+                    worst, worst_name = err / ref, n
+            log(f"  {name}, {ckpt.split('/')[-1]}, {TRAIN_CHECK_BATCH} x "
+                f"{TRAIN_CHECK_SECONDS:g} s: loss GPU {l_gpu:.6f} CPU "
+                f"{l_cpu:.6f} float64 {out['cpu64'][0]:.6f}; {len(g_64)} "
+                f"gradients, worst |GPU - float64| / max(peak, floor) "
+                f"{worst:.3e} ({worst_name}; tolerance {TOL_TRAIN_GRAD}); "
+                f"the CPU's float32 at worst {cpu_to64:.3e}; launches: "
+                + ", ".join(f"{k} {counts[k]}" for k in per_step)
+                + ", no other kernel of the port")
+    phase("path: train step GPU vs CPU", 240, train_step_check, grad=True)
+
+    def trainer_cli():
+        """The port's trainer CLI on each committed training config at
+        its full width and batch (8 x 5 s), TRAIN_FRAC of an epoch (3
+        training batches, 1 validation batch), into a fresh run dir:
+        every logged number finite; last, best and the meta file
+        written; the best checkpoint loads strictly into a fresh model
+        and has the committed checkpoint's keys and shapes; the kernels
+        launched what 3 training steps and 1 validation batch imply."""
+        from lookoncetohear_tpu_torch import trainer as cli
+        with tempfile.TemporaryDirectory(prefix="port_train_") as tmp:
+            for name, cfg, ckpt, model_cls in tasks:
+                hp = port_utils.Params(cfg)
+                run_dir = os.path.join(tmp, name)
+                # validation keeps no graph: B2 for every BiLSTM, the
+                # training forward for the separator's inter-time LSTM
+                val = {"bilstm_scan": 3, "bilstm_scan_fwd_train": 3} \
+                    if name == "TSETask" else {"bilstm_scan": 6}
+                want = {k: 3 * v for k, v in per_step.items()}
+                for k, v in val.items():
+                    want[k] = want.get(k, 0) + v
+                reset_counts()
+                t0 = time.perf_counter()
+                cli.run(["--config", cfg, "--run_dir", run_dir, "--frac",
+                         str(TRAIN_FRAC), "--epochs", "1"])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = read_counts()
+                expect_counts(counts, want, f"{name} trainer CLI")
+                if name == "TSETask":
+                    # the main training path: the kernels line reports
+                    # this run's launches of the training kernels
+                    for k in per_step:
+                        launch_counts[k] = counts[k]
+                with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                    recs = [json.loads(line) for line in f]
+                nums = [v for r in recs for v in r.values()
+                        if isinstance(v, float)]
+                if not (len(recs) == 1 and recs[0]["step"] == 3
+                        and np.isfinite(nums).all()):
+                    raise AssertionError(f"{name}: metrics {recs}")
+                for fn in ("last.ckpt", "best.ckpt", "ckpt_meta.json"):
+                    if not os.path.exists(os.path.join(run_dir, fn)):
+                        raise AssertionError(f"{name}: no {fn}")
+                best = os.path.join(run_dir, "best.ckpt")
+                got, ref = load_npz(best), load_npz(ckpt)
+                if {k: v.shape for k, v in got.items()} != \
+                        {k: v.shape for k, v in ref.items()}:
+                    raise AssertionError(f"{name}: best.ckpt keys/shapes "
+                                         f"differ from {ckpt}")
+                mp = hp.pl_module_args["model_params"]
+                load_checkpoint(model_cls(**mp, device="cpu"), best)
+                log(f"  {name}: {secs:.1f} s for 3 training batches + 1 "
+                    f"validation batch of {hp.batch_size} x "
+                    f"{hp.train_data_args['duration']:g} s (rendering and "
+                    f"checkpoints included) [{smi}]; "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in recs[0].items()
+                                if "/" in k)
+                    + f"; best.ckpt: {len(got)} tensors, keys and shapes of "
+                    f"{ckpt.split('/')[-1]}, loads strictly; launches: "
+                    + ", ".join(f"{k} {v}" for k, v in want.items()))
+    phase("path: trainer CLI", 150, trainer_cli, grad=True)
+
+    class StepOnce:
+        """A training step in the shape `profile_steps` drives."""
+
+        def __init__(self, trainer, batch):
+            self.trainer, self.batch = trainer, batch
+
+        def step(self, _):
+            self.trainer.train_step(self.batch, 0)
+
+    def step_with_remat(tr, batch, steps=3):
+        """ms a step (median after the first) and peak GB of the same
+        training step with every GridNet block checkpointed (the JAX
+        package's `nn.remat`: the backward recomputes each block from
+        its input), for the trade the models make by keeping the
+        activations."""
+        import functools
+
+        from torch.utils.checkpoint import checkpoint
+        blocks = [m for m in tr.model.modules()
+                  if type(m).__name__.startswith("GridNetBlock")]
+        for m in blocks:
+            m.forward = functools.partial(
+                checkpoint, type(m).forward.__get__(m), use_reentrant=False)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_step(batch, 0)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return (float(np.median(ms[1:])),
+                    torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            for m in blocks:
+                del m.forward
+
+    def train_times():
+        """Training steps at each config's batch of 8 x 5 s, from a
+        seeded random init on one fixed batch (TRAIN_STEPS for TSETask,
+        whose loss must fall; 4 for EmbedTask): ms per step from call to
+        synchronize (median after the first), peak memory, and a
+        profile of one step: the port's kernels as counted, no cuDNN RNN
+        kernel. Then both training kernels at the four scan shapes
+        beside their plain versions and cuDNN's LSTM."""
+        for (name, cfg, _, _), steps in zip(tasks, (TRAIN_STEPS, 4)):
+            hp = port_utils.Params(cfg)
+            host = host_batch(hp, hp.batch_size)
+            task = build_task(hp)
+            with tempfile.TemporaryDirectory(prefix="port_step_") as tmp, \
+                    port_utils.full_float32():
+                tr = Trainer(task, tmp, epochs=1, device=dev)
+                batch = to_device(task.device_batch(host, train=True), dev)
+                torch.cuda.reset_peak_memory_stats()
+                losses, ms = [], []
+                for _ in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = tr.train_step(batch, 0)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(m["loss"].item())
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                prof = profile_steps(StepOnce(tr, batch), [None], torch,
+                                     per_step, absent=("RNN", "rnn", "LSTM",
+                                                       "lstm_cell"),
+                                     counters=(reset_counts, read_counts))
+                remat_ms, remat_gb = step_with_remat(tr, batch)
+            if not (np.isfinite(losses).all() and (
+                    name != "TSETask" or losses[-1] < losses[0])):
+                raise AssertionError(f"{name}: losses {losses}")
+            step_ms = float(np.median(ms[1:]))
+            res[f"train_{name}"] = dict(batch=hp.batch_size,
+                                        seconds=hp.train_data_args["duration"],
+                                        ms=step_ms, peak_gb=peak_gb,
+                                        remat_ms=remat_ms,
+                                        remat_peak_gb=remat_gb,
+                                        losses=losses, **prof)
+            log(f"  {name}, {hp.batch_size} x "
+                f"{hp.train_data_args['duration']:g} s, seeded random init, "
+                f"one fixed batch: {step_ms:.1f} ms a step from call to "
+                f"synchronize (median of {steps - 1} after the first, "
+                f"{ms[0]:.1f} ms first), peak {peak_gb:.2f} GB; loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f} in {steps} steps; "
+                f"every block checkpointed: {remat_ms:.1f} ms a step, peak "
+                f"{remat_gb:.2f} GB [{smi}]")
+        for key, (xp, w_hh, h0, c0, dys, dct, ys, cs) in train_scans.items():
+            t_, nd, bb, _ = xp.shape
+            h = 64
+            fwd = lambda i: bilstm_scan_train_cuda(xp, w_hh, h0, c0)  # noqa
+            bwd = lambda i: bilstm_scan_bwd_cuda(  # noqa: E731
+                xp, w_hh, h0, c0, ys, cs, dys, dct)
+            for _ in range(3):
+                fwd(0), bwd(0)
+            f_ms, b_ms = device_ms(fwd, 20), device_ms(bwd, 20)
+            pf_ms = wall_ms(lambda i: bilstm_scan_reference(
+                xp, w_hh, torch.float32, h0, c0, with_cs=True), 2)
+            pb_ms = wall_ms(lambda i: bilstm_scan_backward_reference(
+                xp, w_hh, h0, c0, ys, cs, dys, dct), 2)
+            lstm = torch.nn.LSTM(h, h, batch_first=True,
+                                 bidirectional=nd == 2).to(dev)
+            x_in = torch.randn(bb, t_, h, device=dev, requires_grad=True)
+            gy = torch.randn(bb, t_, nd * h, device=dev)
+            lf = lambda i: lstm(x_in)[0]  # noqa: E731
+            lfb = lambda i: lstm(x_in)[0].backward(gy)  # noqa: E731
+            for _ in range(3):
+                lfb(0)
+            lf_ms, lfb_ms = device_ms(lf, 10), device_ms(lfb, 10)
+            del lstm, x_in, gy
+            n_state = nd * bb * h
+            seq = t_ * n_state
+            st = 0 if h0 is None else 2 * n_state
+            f_bytes = 4 * (xp.numel() + w_hh.numel() + st + 2 * seq
+                           + n_state)
+            b_bytes = 4 * (2 * xp.numel() + w_hh.numel() + st + 3 * seq
+                           + 3 * n_state)
+            f_ops = t_ * nd * bb * (2 * h * 4 * h + 4 * h)
+            b_ops = t_ * nd * bb * (2 * 2 * h * 4 * h + 16 * h)
+            for kname, k_ms, p_ms, l_ms, nb, ops in (
+                    ("bilstm_scan_fwd_train", f_ms, pf_ms, lf_ms, f_bytes,
+                     f_ops),
+                    ("bilstm_scan_bwd", b_ms, pb_ms, lfb_ms, b_bytes,
+                     b_ops)):
+                t_bytes, t_ops = nb / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+                row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                           bound_ms=max(t_bytes, t_ops) * 1e3,
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations")
+                res[f"{kname}_{key}"] = row
+                if key == "tse_intra":
+                    res[kname].update(row)
+                log(f"  {kname} {key} xp {list(xp.shape)}: kernel "
+                    f"{k_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f} "
+                    f"us ({row['bound_by']}: {nb / 1e6:.1f} MB, "
+                    f"{ops / 1e9:.2f} GFLOP f32), plain {p_ms * 1e3:.1f} us, "
+                    f"cuDNN nn.LSTM "
+                    + ("forward" if kname.endswith("train") else
+                       "forward + backward")
+                    + f" {l_ms * 1e3:.1f} us [{smi}]")
+    phase("times: training", 120, train_times, grad=True)
 
     def no_children():
         """The eval loaders' fork server and resource tracker stopped
@@ -1258,12 +1673,18 @@ def main() -> int:
         if left:
             raise AssertionError(f"child processes left: {left}")
         log("  no child process left")
-    phase("stop workers", 20, no_children)
+    phase("stop workers", 10, no_children)
 
     tpu = "lookoncetohear_tpu/ops/pallas_attention.py"
     meta = {
         "bilstm_scan": ("bilstm_scan.cu",
                         "lookoncetohear_tpu/ops/pallas_lstm.py:59"),
+        # the differentiated lax.scan of lstm_apply_bidir (:130) and
+        # lstm_apply (:108): the Pallas kernel has no gradient
+        "bilstm_scan_fwd_train": ("bilstm_scan.cu",
+                                  "lookoncetohear_tpu/ops/lstm.py:130"),
+        "bilstm_scan_bwd": ("bilstm_scan.cu",
+                            "lookoncetohear_tpu/ops/lstm.py:130"),
         "ring_int8_step": ("ring_int8_step.cu", f"{tpu}:334"),
         **{name: ("attn_step.cu", f"{tpu}:{129 if kvdt == torch.int8 else 54}")
            for (_, kvdt), name in VARIANTS.items()},
@@ -1284,6 +1705,11 @@ def main() -> int:
         m: {k: r[k] for k in ("max_dev", "means", "seconds")}
         for m, r in evals.items()}))
     log(f"serving precision: {json.dumps(kv_means)}")
+    for name, _, _, _ in tasks:
+        log(f"train step {name}: {json.dumps(res['train_' + name])}")
+    for key in TRAIN_SCANS:
+        for kname in ("bilstm_scan_fwd_train", "bilstm_scan_bwd"):
+            log(f"{kname}_{key}: {json.dumps(res[f'{kname}_{key}'])}")
     for k in ("625", "enroll_intra", "enroll_inter", "eval",
               "eval_enroll_intra", "eval_enroll_inter"):
         log(f"bilstm_scan_{k}: {json.dumps(res['bilstm_scan_' + k])}")

@@ -1,8 +1,9 @@
-"""Host-side batching (counterpart of `collate` in
-`lookoncetohear_tpu/data/loader.py`): scenes are rendered by
-`torch.utils.data.DataLoader` workers and collated into numpy batches.
-Only the eval loop moves the numeric fields to the device; strings and
-metadata stay host-side lists.
+"""Host-side batching (counterpart of `collate`, `shard_indices` and
+`DataLoader` in `lookoncetohear_tpu/data/loader.py`, single process):
+scenes are rendered by `torch.utils.data.DataLoader` workers and
+collated into numpy batches. Only the eval and training loops move the
+numeric fields to the device; strings and metadata stay host-side
+lists.
 
 `collate` keeps the JAX package's nesting, which differs from
 `torch.utils.data.default_collate`: a list field of per-sample lists
@@ -39,10 +40,65 @@ def collate(samples: list) -> Any:
     return np.stack([np.asarray(s) for s in samples])
 
 
-def batches(dataset, batch_size: int = 4,
-            num_workers: int = 0) -> torch.utils.data.DataLoader:
-    """The dataset in order, `batch_size` scenes per `collate`d batch,
-    rendered by `num_workers` worker processes (0: in this process).
+def shard_indices(n: int, *, shuffle: bool, seed: int,
+                  epoch: int) -> np.ndarray:
+    """The scene order of an epoch: every index, permuted by
+    `default_rng((seed, epoch))` when shuffling (the JAX package's
+    order on one process)."""
+    idx = np.arange(n)
+    if shuffle:
+        idx = np.random.default_rng((seed, epoch)).permutation(idx)
+    return idx
+
+
+class DataLoader:
+    """Epoch iterator: `shard_indices` -> batches of `batch_size` (the
+    ragged tail dropped with `drop_last`) -> `collate`, rendered by
+    `num_workers` fork-server workers as `batches` does. `set_epoch`
+    picks the epoch's shuffle."""
+
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
+                 seed: int = 0, num_workers: int = 0,
+                 drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = num_workers
+        self.drop_last = drop_last
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def _index_batches(self) -> list:
+        idx = shard_indices(len(self.dataset), shuffle=self.shuffle,
+                            seed=self.seed, epoch=self.epoch)
+        if self.drop_last:
+            idx = idx[:len(idx) - len(idx) % self.batch_size]
+        return [idx[i:i + self.batch_size].tolist()
+                for i in range(0, len(idx), self.batch_size)]
+
+    def epoch_batches(self, max_batches: int | None = None):
+        """This epoch's first `max_batches` batches (all with None): only
+        those are rendered."""
+        return iter(batches(self.dataset, num_workers=self.num_workers,
+                            batch_sampler=self._index_batches()[:max_batches]))
+
+    def __iter__(self):
+        return self.epoch_batches()
+
+
+def batches(dataset, batch_size: int = 4, num_workers: int = 0,
+            batch_sampler=None) -> torch.utils.data.DataLoader:
+    """The dataset in order, `batch_size` scenes per `collate`d batch
+    (or the index lists of `batch_sampler`), rendered by `num_workers`
+    worker processes (0: in this process).
 
     Workers come from a fork server: a fresh single-threaded process
     that imports torch and this package once, of which each worker is a
@@ -54,10 +110,11 @@ def batches(dataset, batch_size: int = 4,
         ctx = multiprocessing.get_context("forkserver")
         # takes effect when the server starts, at the first loader
         ctx.set_forkserver_preload([__name__, type(dataset).__module__])
+    order = dict(batch_size=batch_size) if batch_sampler is None \
+        else dict(batch_sampler=batch_sampler)
     return torch.utils.data.DataLoader(
-        dataset, batch_size=batch_size, shuffle=False, drop_last=False,
-        collate_fn=collate, num_workers=num_workers,
-        multiprocessing_context=ctx)
+        dataset, collate_fn=collate, num_workers=num_workers,
+        multiprocessing_context=ctx, **order)
 
 
 def stop_workers() -> None:

@@ -36,6 +36,7 @@ def entry(device=None):
     embeds = torch.zeros((2, 1, FLAGSHIP["embed_dim"]), device=dev)
 
     def fn(x, embeds):
-        return net(x, embeds)
+        with torch.no_grad():
+            return net(x, embeds)
 
     return fn, (x, embeds)

@@ -4,12 +4,15 @@ as the JAX package and the reference's `model_params` JSON:
 
   * `Net`, the streaming separator, and `mod_pad`: `step` (one 8 ms
     chunk), `predict` and `forward` (the JAX `__call__`: a whole
-    utterance);
+    utterance, with the optional direction-of-arrival head);
   * `EmbedNet`, the enrollment net (noisy binaural snippet -> d-vector);
   * `OfflineSeparatorNet`, the offline 2-source separator.
 
-All are inference only. The direction head and training wait for later
-slices.
+`Net.forward` and `EmbedNet.forward` are differentiable (the training
+tasks call them); their inference callers run them under
+`torch.no_grad()` or `torch.inference_mode()`. `Net.predict`,
+`Net.step` and `OfflineSeparatorNet.forward`, which no training path
+calls, keep no graph.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ class Net(nn.Module):
                  B: int = 6, I: int = 1, J: int = 1, L: int = 0,
                  H: int = 128, use_attn: bool = False, lookahead: bool = True,
                  local_atten_len: int = 100, chunk_causal: bool = False,
-                 num_src: int = 2, device=None):
+                 num_src: int = 2, dir_head: bool = False,
+                 n_dir_bins: int = 33, device=None):
         super().__init__()
         if I != 1 or J != 1:
             raise ValueError("streaming TF-GridNet uses emb_ks=emb_hs=1")
@@ -58,7 +62,22 @@ class Net(nn.Module):
             attn_n_head=L, attn_approx_qk_dim=512, emb_dim=D,
             spk_emb_dim=embed_dim, local_atten_len=local_atten_len,
             use_attn=use_attn, chunk_causal=chunk_causal)
+        # optional direction-of-arrival head: per-frame logits over
+        # n_dir_bins from the frequency mean of the pre-deconv features
+        self.dir_head, self.n_dir_bins = dir_head, n_dir_bins
+        if dir_head:
+            self.dir_proj = nn.Linear(D, n_dir_bins)
         self.to(resolve_device(device))
+
+    def _shifts_to_indices(self, shifts):
+        """L/R cross-correlation shifts (the dataset's tgt_shift, within
+        +-16 samples) -> direction bins in [0, n_dir_bins), linear in
+        the shift."""
+        max_shift = 16
+        s = shifts.clamp(-max_shift, max_shift)
+        idx = torch.round((s + max_shift) * (self.n_dir_bins - 1)
+                          / (2 * max_shift))
+        return idx.to(torch.int64)
 
     @property
     def nfft(self) -> int:
@@ -81,23 +100,34 @@ class Net(nn.Module):
 
         With pad=True, x is padded to whole chunks plus the lookahead
         `stft_pad_size` and the output trimmed back to N' samples; with
-        pad=False, x must hold whole frames."""
+        pad=False, x must hold whole frames. Keeps no graph; `forward`
+        is the differentiable call."""
+        return self._separate(x, embed, state, pad)
+
+    def _separate(self, x, embed, state, pad: bool, features: bool = False):
         n_in = x.shape[-1]
         if pad:
             x, _ = mod_pad(x, self.stft_chunk_size,
                            (0, self.stft_pad_size if self.lookahead else 0))
-        y, state = self.tfgridnet(x, embed, state)
-        return (y[..., :n_in] if pad else y), state
+        y, *rest = self.tfgridnet(x, embed, state, return_features=features)
+        return ((y[..., :n_in] if pad else y), *rest)
 
-    @torch.no_grad()
-    def forward(self, x, embeds, state=None, pad: bool = True):
+    def forward(self, x, embeds, state=None, pad: bool = True,
+                dir: bool = False):
         """x: [B, M, N]; embeds: [B, n_enroll, E], of which the first
-        enrollment is used. Returns separated audio [B, S, N]. Without
-        a state, starts from a fresh one in x's dtype."""
+        enrollment is used. Returns separated audio [B, S, N], and with
+        dir=True also per-frame direction logits [B, T, n_dir_bins].
+        Without a state, starts from a fresh one in x's dtype."""
         embeds = embeds[:, 0]
         if state is None:
             state = self.init_state(x.shape[0], x.dtype)
-        return self.predict(x, embeds, state, pad)[0]
+        if not dir:
+            return self._separate(x, embeds, state, pad)[0]
+        if not self.dir_head:
+            raise ValueError("construct Net with dir_head=True")
+        y, _, feats = self._separate(x, embeds, state, True, features=True)
+        # [B, D, T, F] -> frequency mean [B, T, D] -> logits
+        return y, self.dir_proj(feats.mean(dim=3).transpose(1, 2))
 
     @torch.no_grad()
     def step(self, x_chunk, embed, state):
@@ -121,7 +151,6 @@ class EmbedNet(nn.Module):
                                   n_layers=num_blocks)
         self.to(resolve_device(device))
 
-    @torch.no_grad()
     def forward(self, x):
         """x: [B, M, N] noisy binaural enrollment -> [B, embed_dim]."""
         return self.net(x)

@@ -1,16 +1,18 @@
 """Offline TF-GridNet (espnet semantics) and the binaural enrollment
 ("look once") embedding network (counterpart of
-`lookoncetohear_tpu/models/offline_tfgridnet.py`), inference only.
+`lookoncetohear_tpu/models/offline_tfgridnet.py`).
 
 centered STFT -> Conv2d + GroupNorm -> N offline GridNet blocks
 (unfold-k=4 BiLSTMs over frequency and over time, full multi-head time
 attention) -> Linear(C*F -> 256) + LayerNorm -> mean over time.
 
 Both unfolded BiLSTMs of a block go through the port's
-`LSTM(bidirectional=True)`, i.e. `lstm_apply_bidir` -> `bilstm_scan`:
-the CUDA kernel for GPU tensors (the JAX package runs the same
-recurrence through `lax.scan`). The T x T time attention is plain
-matmuls and a softmax, in the input's dtype, as in the JAX package.
+`LSTM(bidirectional=True)`, i.e. `lstm_apply_bidir`: B2 for GPU
+tensors in inference, the training kernels when a gradient is needed
+(the JAX package runs the same recurrence through `lax.scan`). Unlike
+the JAX package (`nn.remat`), no stage is recomputed in the backward
+(PERF.md). The T x T time attention is plain matmuls and a softmax, in
+the input's dtype, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -26,7 +26,10 @@ when the state is made:
 State is a dict of tensors like the JAX pytree. At T=1 the ring leaves
 of each block (k_buf, v_buf, the int8 scales, pos) are updated IN
 PLACE; every other leaf, and every leaf of a T>1 pass, is returned
-anew.
+anew, so a T>1 pass writes no tensor that autograd saved. Unlike the
+JAX package (`nn.remat`), no block is recomputed in the backward: on
+an 80 GB H100 keeping the activations is the faster training step
+(PERF.md).
 """
 
 from __future__ import annotations
@@ -379,11 +382,12 @@ class StreamingTFGridNet(nn.Module):
             kv_dtype=kv_dtype,
             device=self.fb.device if device is None else device)
 
-    def forward(self, x, spk_embedding, state):
+    def forward(self, x, spk_embedding, state, return_features: bool = False):
         """x: [B, M, N] audio of T frames, N = n_fft + (T-1)*stride
         (T=1: one streaming window); spk_embedding: [B, E]. Returns
         (audio [B, n_srcs, T*stride], new_state), delayed by one hop
-        like the JAX package."""
+        like the JAX package, and with `return_features` also the
+        pre-deconv features [B, D, T, F] (for the direction head)."""
         b = x.shape[0]
         f, k = self.n_freqs, self.t_ksize - 1
 
@@ -417,4 +421,7 @@ class StreamingTFGridNet(nn.Module):
         new_state["istft_buf"] = y[..., -self.istft_lookback:]
         audio = stft_ops.fb_decode(y, self.n_fft, self.stride, self.fb)
         audio = audio[..., self.istft_lookback * self.stride:]
-        return audio[..., :t * self.stride], new_state
+        audio = audio[..., :t * self.stride]
+        if return_features:
+            return audio, new_state, h
+        return audio, new_state

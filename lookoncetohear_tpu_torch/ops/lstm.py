@@ -1,6 +1,12 @@
-"""LSTM pieces of the streaming step (counterpart of
+"""LSTM pieces of the streaming step and of training (counterpart of
 `lookoncetohear_tpu/ops/lstm.py`), torch.nn.LSTM parameter layout:
 gate order i, f, g, o; w_ih [4H, I], w_hh [4H, H], two bias vectors.
+
+Every recurrence over T > 1 goes through `ops/bilstm_scan.py`: B2 for
+an inference BiLSTM, and the differentiable `bilstm_scan_train`
+(state-saving forward and backward kernels on the card) for a BiLSTM
+that needs a gradient and for the one-direction LSTM from a carried
+state. The T = 1 serving step is plain ops (`lstm_step`).
 """
 
 from __future__ import annotations
@@ -10,7 +16,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from lookoncetohear_tpu_torch.ops.bilstm_scan import bilstm_scan
+from lookoncetohear_tpu_torch.ops.bilstm_scan import (bilstm_scan,
+                                                      bilstm_scan_train)
 
 
 class LSTMParams(NamedTuple):
@@ -37,18 +44,21 @@ def lstm_apply(params: LSTMParams, x, h0=None, c0=None):
     """One direction over x [B, T, I] from carried (h0, c0).
 
     Returns (outputs [B, T, H], (hT, cT)); carries follow the dtype of
-    the input projection, as in the JAX package."""
+    the input projection, as in the JAX package. T = 1 is the serving
+    step (`lstm_step`); a longer T is one `bilstm_scan_train` call with
+    D = 1, in inference and training alike."""
     b, t_len, _ = x.shape
     hidden = params.w_hh.shape[1]
     x_proj = x @ params.w_ih.T + (params.b_ih + params.b_hh)
     h = x_proj.new_zeros((b, hidden)) if h0 is None else h0.to(x_proj.dtype)
     c = x_proj.new_zeros((b, hidden)) if c0 is None else c0.to(x_proj.dtype)
-    w_hh_t = params.w_hh.T
-    ys = []
-    for t in range(t_len):
-        h, c = _cell(x_proj[:, t] + h @ w_hh_t, c)
-        ys.append(h)
-    return torch.stack(ys, dim=1), (h, c)
+    if t_len == 1:
+        h, c = _cell(x_proj[:, 0] + h @ params.w_hh.T, c)
+        return h[:, None], (h, c)
+    ys, c_t = bilstm_scan_train(x_proj.transpose(0, 1)[:, None],
+                                params.w_hh.T[None], h[None], c[None])
+    ys = ys[:, 0].transpose(0, 1).to(x_proj.dtype)       # [B, T, H]
+    return ys, (ys[:, -1], c_t[0].to(x_proj.dtype))
 
 
 def bidir_scan_inputs(fwd: LSTMParams, bwd: LSTMParams, x):
@@ -66,10 +76,14 @@ def lstm_apply_bidir(fwd: LSTMParams, bwd: LSTMParams, x):
 
     x: [B, T, I] -> (y [B, T, 2H], ((hT_f, hT_b), (cT_f, cT_b))). The
     input projections are plain matmuls; the recurrence runs in float32
-    and is cast back to x's dtype. It goes through `bilstm_scan`, which
-    launches the CUDA kernel for GPU tensors and runs the kernel's plain
-    version for CPU tensors (`ops/bilstm_scan.py`)."""
-    ys, c_t = bilstm_scan(*bidir_scan_inputs(fwd, bwd, x))
+    and is cast back to x's dtype. Without a gradient to keep it goes
+    through `bilstm_scan` (B2 for GPU tensors), with one through the
+    differentiable `bilstm_scan_train`; either runs its plain version
+    for CPU tensors (`ops/bilstm_scan.py`)."""
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in (*fwd, *bwd)))
+    scan = bilstm_scan_train if needs_grad else bilstm_scan
+    ys, c_t = scan(*bidir_scan_inputs(fwd, bwd, x))
     ys = ys.to(x.dtype)
     h_t = ys[-1]
     c_t = c_t.to(x.dtype)

@@ -45,17 +45,18 @@ EMBED_FROM_WAV_REFUSED = (
 
 def load_model(config, run_dir: str, ckpt: str | None, device):
     """The config's model on `device`, its weights loaded strictly from
-    a `p//` npz checkpoint: `ckpt`, else `{run_dir}/best.ckpt`. Any
-    other checkpoint format is refused."""
+    a `p//` npz checkpoint: `ckpt`, else `{run_dir}/best.ckpt` (the
+    port's trainer writes npz files under that name). Any other
+    checkpoint format is refused."""
     module_args = config.pl_module_args
     model = utils.import_attr(module_args["model"])(
         **module_args["model_params"], device=device)
     ckpt = ckpt or os.path.join(run_dir, "best.ckpt")
-    if not (ckpt.endswith(".npz") and os.path.isfile(ckpt)):
+    if not os.path.isfile(ckpt):
         raise ValueError(
             f"{ckpt}: the port loads only `p//` npz checkpoints (the "
-            f"committed checkpoints/*.npz); orbax run dirs and torch "
-            f".ckpt files are not read")
+            f"committed checkpoints/*.npz, the port trainer's .ckpt "
+            f"files); orbax run dirs are not read")
     print(f"Loading (npz) {ckpt}")
     return load_checkpoint(model, ckpt).eval()
 

@@ -4,8 +4,9 @@ dotted paths the committed configs name onto the port's classes.
 
 The configs name the JAX package's classes
 (`lookoncetohear_tpu.models.net.Net`, ...). `import_attr` resolves
-those the port has and refuses every other path, the JAX training
-task (`pl_module`) among them, with an error that names it.
+those the port has (the models, the synthetic dataset, the TSE and
+embedding training tasks and the plateau scheduler) and refuses every
+other path, such as `SeparationTask`, with an error that names it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ _PORTED = frozenset({
     "models.net.Net",
     "models.net.EmbedNet",
     "data.synthetic.SyntheticTSEDataset",
+    "train.tasks.TSETask",
+    "train.tasks.EmbedTask",
+    "train.schedule.ReduceLROnPlateau",
 })
 
 

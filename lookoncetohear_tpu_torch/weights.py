@@ -1,4 +1,4 @@
-"""Flax params / `p//` npz checkpoints -> the port's `state_dict`.
+"""Flax params / `p//` npz checkpoints <-> the port's `state_dict`.
 
 Counterpart of `lookoncetohear_tpu/train/npz_ckpt.py` (key format) and
 `lookoncetohear_tpu/convert.py` (layout rules, run the other way). The
@@ -19,6 +19,10 @@ kernel"). Layout rules, flax -> torch:
   espnet norms' gamma / beta, the offline nets' ConvTranspose1d
   weight [in, out, k]               -> same name, same layout
   HeadConv1x1 kernel [C, out]       -> weight [out, C] (the Dense rule)
+
+`params_to_jax` and `save_npz` run the rules the other way, so a model
+the port trained loads in the JAX package (`train/npz_ckpt.load_params`,
+`ts_hear_test --ckpt`).
 """
 
 from __future__ import annotations
@@ -96,3 +100,51 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         # .copy(): C order, writable, independent of the npz buffer
         sd[name] = torch.from_numpy(_torch_value(key, arr).copy())
     return sd
+
+
+def _flax_key(torch_name: str, ndim: int) -> str:
+    """The inverse of `_torch_name`, given the parameter's rank: a
+    `weight` is an `alpha` under an `act` (PReLU), a `scale` under a
+    `*norm` (LayerNorm, GroupNorm1), a `weight` of rank 3 (the offline
+    nets' ConvTranspose1d) and a `kernel` otherwise."""
+    parts = torch_name.split(".")
+    mod = []
+    for p in parts[:-1]:
+        if p.isdigit():
+            mod[-1] = f"{mod[-1]}_{p}"
+        else:
+            mod.append(p)
+    leaf = parts[-1]
+    if leaf == "weight":
+        parent = mod[-1] if mod else ""
+        if parent == "act":
+            leaf = "alpha"
+        elif parent.endswith("norm"):
+            leaf = "scale"
+        elif ndim != 3:
+            leaf = "kernel"
+    return _SEP.join(mod + [leaf])
+
+
+def params_to_jax(state_dict) -> dict[str, np.ndarray]:
+    """Port `state_dict` -> flat flax params {"a/b/kernel": float32
+    array}, the exact inverse of `params_from_jax`."""
+    out = {}
+    for name, t in state_dict.items():
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        key = _flax_key(name, arr.ndim)
+        if key.endswith("kernel"):
+            arr = np.transpose(arr, (2, 3, 1, 0)) if arr.ndim == 4 else arr.T
+        out[key] = np.ascontiguousarray(arr)
+    return out
+
+
+def save_npz(path: str, model: torch.nn.Module, extra=None) -> None:
+    """Write the model's parameters as a `p//` npz checkpoint, plus the
+    entries of `extra` ({key: array}), to `path` as given (numpy adds
+    no suffix to an open file)."""
+    entries = {PARAM_PREFIX + k: v
+               for k, v in params_to_jax(model.state_dict()).items()}
+    entries.update(extra or {})
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **entries)

@@ -399,9 +399,10 @@ def test_embed_net_on_the_card_matches_the_cpu(dev):
     from lookoncetohear_tpu_torch.weights import load_checkpoint
     ckpt = "checkpoints/embed_r5_5k_best.npz"
     x = torch.randn(2, 2, 16000, generator=torch.Generator().manual_seed(4))
-    cpu = load_checkpoint(EmbedNet(device="cpu"), ckpt)(x)
-    before = bilstm_scan_cuda.launches
-    gpu = load_checkpoint(EmbedNet(), ckpt)(x.to(dev))
+    with torch.no_grad():
+        cpu = load_checkpoint(EmbedNet(device="cpu"), ckpt)(x)
+        before = bilstm_scan_cuda.launches
+        gpu = load_checkpoint(EmbedNet(), ckpt)(x.to(dev))
     assert bilstm_scan_cuda.launches == before + 6
     peak = cpu.abs().max().item()
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4 * peak)
@@ -458,3 +459,104 @@ def test_eval_cli_refusals_on_the_card(dev, tmp_path):
         args.ckpt = ckpt
         with pytest.raises(ValueError, match="npz"):
             ts_hear_test.run(args)
+
+
+# ---- training ----------------------------------------------------------------
+
+@pytest.mark.parametrize("t,nd,b", [(97, 2, 12), (97, 1, 12), (300, 1, 5)])
+def test_bilstm_train_kernels_match_plain(dev, t, nd, b):
+    """The state-saving forward (ys, c_T, every c; without cs the same
+    ys and c_T bit for bit) and the backward
+    (dxp, dh0, dc0) against their plain versions from a nonzero
+    (h0, c0): 2e-5 of each output's peak over 97 steps, 1e-4 over 300
+    (float32 rounding compounds along the chain)."""
+    from lookoncetohear_tpu_torch.ops.bilstm_scan import (
+        bilstm_scan_backward_reference, bilstm_scan_bwd_cuda,
+        bilstm_scan_train_cuda)
+    g = torch.Generator().manual_seed(t + nd + b)
+    r = lambda *s, k=0.5: (torch.randn(*s, generator=g) * k).to(dev)
+    xp, w = r(t, nd, b, 256), r(nd, 64, 256, k=0.3)
+    h0, c0, dys, dct = r(nd, b, 64), r(nd, b, 64), r(t, nd, b, 64), \
+        r(nd, b, 64)
+    tol = 2e-5 if t <= 97 else 1e-4
+    got = bilstm_scan_train_cuda(xp, w, h0, c0)
+    want = bilstm_scan_reference(xp, w, torch.float32, h0, c0, with_cs=True)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=0,
+                                   atol=tol * max(1.0, e.abs().max().item()))
+    lean = bilstm_scan_train_cuda(xp, w, h0, c0, save_cs=False)
+    assert lean[2] is None
+    assert torch.equal(lean[0], got[0]) and torch.equal(lean[1], got[1])
+    ys, _, cs = want
+    got = bilstm_scan_bwd_cuda(xp, w, h0, c0, ys, cs, dys, dct)
+    want = bilstm_scan_backward_reference(xp, w, h0, c0, ys, cs, dys, dct)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=0,
+                                   atol=tol * max(1.0, e.abs().max().item()))
+
+
+def test_lstm_ops_route_through_the_training_kernels(dev):
+    """With a gradient to keep, the BiLSTM and the one-direction LSTM
+    launch the training forward and backward kernels and never B2;
+    without one the BiLSTM is B2 and the one-direction LSTM the training
+    forward. B2 refuses an input that needs a gradient."""
+    from lookoncetohear_tpu_torch.ops import bilstm_scan as bs
+    from lookoncetohear_tpu_torch.ops.lstm import LSTM
+    torch.manual_seed(0)
+    bi, uni = LSTM(16, 64, bidirectional=True).to(dev), LSTM(16, 64).to(dev)
+    x = torch.randn(3, 9, 16, device=dev)
+    counts = lambda: (bs.bilstm_scan_cuda.launches,
+                      bs.bilstm_scan_train_cuda.launches,
+                      bs.bilstm_scan_bwd_cuda.launches)
+    c0 = counts()
+    (bi(x)[0].sum() + uni(x)[0].sum()).backward()
+    assert [a - b for a, b in zip(counts(), c0)] == [0, 2, 2]
+    assert all(p.grad is not None for p in (*bi.parameters(),
+                                            *uni.parameters()))
+    c0 = counts()
+    with torch.no_grad():
+        bi(x), uni(x)
+    assert [a - b for a, b in zip(counts(), c0)] == [1, 1, 0]
+    xp = torch.zeros(3, 2, 1, 256, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        bs.bilstm_scan_cuda(xp, torch.zeros(2, 64, 256, device=dev))
+
+
+@pytest.mark.parametrize("task_name", ["tse", "embed"])
+def test_train_step_on_the_card_matches_the_cpu(dev, task_name):
+    """One loss-and-backward of each committed task's model (from its
+    checkpoint) on a 2 x 1 s batch of the synthetic train split: loss
+    1e-4 of the CPU's float32 run, every gradient within 1e-3 of
+    max(its peak, 1e-3 of the model's largest peak) of the CPU's float64
+    run, as chip_smoke.py holds it and says why (float32 through the
+    whole network; TF32 off)."""
+    from lookoncetohear_tpu_torch.data.loader import collate
+    from lookoncetohear_tpu_torch.data.synthetic import SyntheticTSEDataset
+    from lookoncetohear_tpu_torch.train.trainer import build_task, to_device
+    from lookoncetohear_tpu_torch.utils import Params
+    from lookoncetohear_tpu_torch.weights import load_checkpoint
+    cfg, ckpt = {"tse": ("configs/tsh_synthetic_5k.json",
+                         "checkpoints/tsh_r5_5k_best.npz"),
+                 "embed": ("configs/embed_synthetic_5k.json",
+                           "checkpoints/embed_r5_5k_best.npz")}[task_name]
+    hp = Params(cfg)
+    ds = SyntheticTSEDataset(**{**hp.train_data_args, "duration": 1.0})
+    host = collate([ds[0], ds[1]])
+    out = []
+    for device, dt in (("cpu", torch.float32), (dev, torch.float32),
+                       ("cpu", torch.float64)):
+        task = build_task(hp)
+        model = load_checkpoint(task.model, ckpt).to(device, dt)
+        batch = {k: v.to(dt) if v.is_floating_point() else v for k, v in
+                 to_device(task.device_batch(host, train=True),
+                           device).items()}
+        loss, _ = task.loss_and_metrics(batch, 0)
+        loss.backward()
+        out.append((loss.item(), {n: p.grad.cpu().double() for n, p in
+                                  model.named_parameters()}))
+    (lc, _), (lg, gg), (_, g64) = out
+    assert abs(lg - lc) <= 1e-4 * max(1.0, abs(lc))
+    floor = 1e-3 * max(g.abs().max().item() for g in g64.values())
+    for n, g in g64.items():
+        torch.testing.assert_close(
+            gg[n], g, rtol=0, atol=1e-3 * max(g.abs().max().item(), floor))

@@ -179,6 +179,7 @@ def test_embed_net_from_checkpoint_matches_jax(embed_flat):
         {tuple(k.split("/")): jnp.asarray(v) for k, v in embed_flat.items()})
     want = _jax_apply(jnet.EmbedNet(), params, x)
     net = load_checkpoint(tnet.EmbedNet(device="cpu"), EMBED_CKPT)
-    got = net(torch.from_numpy(x))
+    with torch.no_grad():
+        got = net(torch.from_numpy(x))
     assert got.shape == (2, 256) and torch.isfinite(got).all()
     _close(got, want, 1e-4)

@@ -137,7 +137,8 @@ def test_forward_matches_jax(models, chunk_causal):
     emb = emb[:, None]
     jy = _jit(jnets[chunk_causal], "forward")(params, jnp.asarray(x),
                                         jnp.asarray(emb))
-    ty = tnets[chunk_causal](torch.from_numpy(x), torch.from_numpy(emb))
+    with torch.no_grad():
+        ty = tnets[chunk_causal](torch.from_numpy(x), torch.from_numpy(emb))
     assert ty.shape == (2, 2, x.shape[-1])
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL)
 
@@ -157,7 +158,9 @@ def test_streamed_equals_full_in_the_port(models):
     net = tnets[True]
     b, n = 2, 12 * CHUNK
     x, emb = _inputs(2, b, n)
-    full = net(torch.from_numpy(x), torch.from_numpy(emb)[:, None]).numpy()
+    with torch.no_grad():
+        full = net(torch.from_numpy(x),
+                   torch.from_numpy(emb)[:, None]).numpy()
     xp = np.concatenate([x, np.zeros((b, 2, NFFT - CHUNK), np.float32)], -1)
     state = net.init_state(b)
     outs = []
@@ -273,7 +276,8 @@ def test_one_state_dict_drives_every_path(models):
                          net.init_state(b, kv_dtype=kv))
         np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=tol)
     jy = _jit(jm, "forward")(params, jnp.asarray(x), jnp.asarray(emb[:, None]))
-    ty = net(torch.from_numpy(x), torch.from_numpy(emb)[:, None])
+    with torch.no_grad():
+        ty = net(torch.from_numpy(x), torch.from_numpy(emb)[:, None])
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL)
 
 
