@@ -54,7 +54,9 @@ full forward; and `EmbedNet` on 5 s. Last, the eval paths:
 Then training, every LSTM recurrence on the port's training kernels
 (the state-saving forward and the backward of `csrc/bilstm_scan.cu`):
   * both kernels against their plain versions at the committed
-    training configs' four scan shapes (random inputs made on the card);
+    training configs' four scan shapes and a tail shape, in the models'
+    layouts (random inputs made on the card), the forward also against
+    a float64 run;
   * one `TSETask` and one `EmbedTask` loss-and-backward from the
     committed checkpoints on a 2 x 1 s batch of the synthetic train
     split, on the card against the CPU, with the launch counts a step
@@ -141,6 +143,7 @@ ENROLL_BATCH = 2
 TOL_ENROLL = 1e-4
 OP_RING_STEPS = 12            # the op-level int8 ring path
 FULL_SECONDS = 5.0
+FULL_REPS = 10                # timed calls of the full forward
 # training: the committed training configs' scan shapes, (T, D, rows):
 # TSE intra [97, 2, 8 x 625 frames] and inter [625, 1, 8 x 97 bins]
 # (from a carried state), EmbedNet intra [62, 2, 8 x 1251] and inter
@@ -148,6 +151,9 @@ FULL_SECONDS = 5.0
 TRAIN_SCANS = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
                "embed_intra": (62, 2, 10008),
                "embed_inter": (1248, 2, 520)}
+# and a row count that no tile of the training kernels divides, both
+# directions from a carried state: the last block's tail rows
+TRAIN_TAIL = (97, 2, 1037)
 # training kernels vs their plain versions on the same inputs, of each
 # output's peak (gradients scale with the incoming gradient; the cell
 # state with the chain): float32 in another order, as B2 (TOL_LSTM up
@@ -180,14 +186,15 @@ KV_COST_DB = 0.3
 # counter name -> the kernel's name in a profiler trace
 TRACE_NAMES = {
     "bilstm_scan": "bilstm_scan_kernel<64, false>",
-    "bilstm_scan_fwd_train": "bilstm_scan_kernel<64, true>",
-    "bilstm_scan_bwd": "bilstm_scan_bwd_kernel<64>",
+    "bilstm_scan_fwd_train": "bilstm_train_fwd_kernel",
+    "bilstm_scan_bwd": "bilstm_train_bwd_kernel",
     "ring_int8_step": "ring_int8_step_kernel<__nv_bfloat16>",
     "attn_step_f32": "attn_step_kernel<float, float>",
     "attn_step_bf16": "attn_step_kernel<__nv_bfloat16, __nv_bfloat16>",
     "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>"}
-PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_scan_bwd_kernel",
-                "ring_int8_step_kernel", "attn_step_kernel")
+PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_train_fwd_kernel",
+                "bilstm_train_bwd_kernel", "ring_int8_step_kernel",
+                "attn_step_kernel")
 # traces of a profile at most: eager-engine traces holding 29 of 10
 # steps' 30 B2 launches came back in two runs of this script
 TRACE_TRIES = 3
@@ -339,9 +346,10 @@ def main() -> int:
         from lookoncetohear_tpu_torch.ops.attn_step import (
             VARIANTS, attention_step_cuda, attention_step_reference)
         from lookoncetohear_tpu_torch.ops.bilstm_scan import (
-            bilstm_scan_backward_reference, bilstm_scan_bwd_cuda,
-            bilstm_scan_cuda, bilstm_scan_reference,
-            bilstm_scan_train_cuda, scan_weight_grad)
+            TRAIN_TILE_COST, bilstm_scan_bwd_cuda, bilstm_scan_cuda,
+            bilstm_scan_reference, bilstm_scan_train_cuda,
+            bilstm_train_backward_reference, bilstm_train_reference,
+            scan_weight_grad, tile_rows)
         from lookoncetohear_tpu_torch.ops.lstm import bidir_scan_inputs
         from lookoncetohear_tpu_torch.ops.ring_step import (
             arrival_counter, ring_attend_int8_step_cuda,
@@ -410,12 +418,23 @@ def main() -> int:
 
     # ---- 2. build: one nvcc call for csrc/*.cu -------------------------
     def build():
-        _build.load_library()
+        lib = _build.load_library()
         b = _build.last_build
         log(f"build: {b['seconds']:.1f} s, cached={b['cached']}: "
             f"{b.get('command', b['path'])}")
         for line in b["ptxas"]:
             log(f"  {line}")
+        # each tile of the training kernels: what ptxas does not print
+        # (its registers and spills are in the lines above)
+        import ctypes
+        for kname, tiles in TRAIN_TILE_COST.items():
+            for r in tiles:
+                out = (ctypes.c_int * 5)()
+                _build.check(lib.bilstm_train_info(r, kname == "bwd", out),
+                             "bilstm_train_info")
+                log(f"  bilstm_train_{kname} tile of {r} rows: {out[0]} "
+                    f"threads, {out[1]} B dynamic shared memory, {out[4]} "
+                    "blocks per SM")
     phase("build", 60, build)
 
     # ---- 3. BiLSTM kernel vs plain ------------------------------------
@@ -1205,12 +1224,31 @@ def main() -> int:
         x = chunks_of(1, PATH_STEPS, 4).transpose(1, 2, 0, 3).reshape(1, 2, -1)
         x = gpu(np.tile(x, (1, 1, -(-n_samp // x.shape[-1])))[..., :n_samp])
         e = gpu(emb[:1, None])
-        net_gpu(x[..., :16000], e)                # warm-up, 1 s
-        fwd_ms = wall_ms(lambda i: net_gpu(x, e), 2)
+        net_gpu(x, e)                             # warm-up
+        # each call between two CUDA events (the card's time from its
+        # first launch to its last), and from call to synchronize
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(FULL_REPS)]
+        walls = []
+        for start, end in ev:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            net_gpu(x, e)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ev_ms = [start.elapsed_time(end) for start, end in ev]
+        fwd_ms = float(np.median(ev_ms))
         res["full_forward"] = dict(seconds=FULL_SECONDS, ms=fwd_ms,
+                                   ms_min=min(ev_ms), ms_max=max(ev_ms),
+                                   wall_ms=float(np.median(walls)),
                                    rtf=fwd_ms / (FULL_SECONDS * 1e3))
         log(f"  Net.forward, 1 stream x {FULL_SECONDS:g} s, float32: "
-            f"{fwd_ms:.1f} ms from call to synchronize (median of 2), RTF "
+            f"{fwd_ms:.2f} ms by CUDA events (median of {FULL_REPS}, "
+            f"{min(ev_ms):.2f}-{max(ev_ms):.2f}), "
+            f"{np.median(walls):.2f} ms from call to synchronize, RTF "
             f"{fwd_ms / (FULL_SECONDS * 1e3):.4f} [{smi}]")
     phase("times", 75, times)
 
@@ -1321,42 +1359,46 @@ def main() -> int:
     train_scans = {}
 
     def train_scan_check():
-        """The state-saving forward (ys, every c, c_T) and the backward
-        (dxp, dh0, dc0, and dW_hh through its product) against their
-        plain versions on the same card tensors: random inputs made on
-        the card from a seed, a nonzero (h0, c0) where the scan carries
-        a state (the TSE inter-time LSTM). The backward of both versions
-        reads the kernel forward's ys and cs, so each is held alone."""
+        """The state-saving forward (y, every c, c_T) and the backward
+        (dxp, dh0, dc0, and dW_hh through its product) in the models'
+        layouts against their plain versions on the same card tensors:
+        random inputs made on the card from a seed, a nonzero (h0, c0)
+        where the scan carries a state (the TSE inter-time LSTM and the
+        tail shape). The backward of both versions reads the kernel
+        forward's y and cs, so each is held alone. The forward is also
+        held to a float64 run of the recurrence (logged)."""
         g = torch.Generator(device=dev).manual_seed(3)
         fwd_err = bwd_err = 0.0
-        for key, (t_, nd, bb) in TRAIN_SCANS.items():
+        for key, (t_, nd, bb) in [*TRAIN_SCANS.items(),
+                                  ("tail", TRAIN_TAIL)]:
             r = lambda *shape, k=0.5: torch.randn(  # noqa: E731
                 shape, generator=g, device=dev) * k
-            xp, w_hh = r(t_, nd, bb, 256), r(nd, 64, 256, k=0.3)
+            xp, w_hh = r(bb, t_, nd * 256), r(nd, 64, 256, k=0.3)
             h0 = c0 = None
-            if key == "tse_inter":
+            if key in ("tse_inter", "tail"):
                 h0, c0 = r(nd, bb, 64), r(nd, bb, 64)
-            dys, dct = r(t_, nd, bb, 64, k=1.0), r(nd, bb, 64, k=1.0)
+            dys, dct = r(bb, t_, nd * 64, k=1.0), r(nd, bb, 64, k=1.0)
             tol = TOL_LSTM if t_ <= 97 else TOL_LSTM_LONG
             got = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
-            plain = bilstm_scan_reference(xp, w_hh, torch.float32, h0, c0,
-                                          with_cs=True)
-            ys, _, cs = got
+            plain = bilstm_train_reference(xp, w_hh, torch.float32, h0, c0,
+                                           with_cs=True)
+            exact = bilstm_train_reference(xp, w_hh, torch.float64, h0, c0)
+            y, _, cs = got
             # a pass that keeps no gradient writes no cs, and the same
-            # ys and c_T bit for bit
+            # y and c_T bit for bit
             lean = bilstm_scan_train_cuda(xp, w_hh, h0, c0, save_cs=False)
-            if lean[2] is not None or not (torch.equal(lean[0], ys)
+            if lean[2] is not None or not (torch.equal(lean[0], y)
                                            and torch.equal(lean[1], got[1])):
                 raise AssertionError(f"{key}: the forward without cs differs")
             del lean
-            gb = bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, ys, cs, dys, dct)
-            pb = bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs,
-                                                dys, dct)
-            gb = (*gb, scan_weight_grad(gb[0], ys, h0))
-            pb = (*pb, scan_weight_grad(pb[0], ys, h0))
+            gb = bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dys, dct)
+            pb = bilstm_train_backward_reference(xp, w_hh, h0, c0, y, cs,
+                                                 dys, dct)
+            gb = (*gb, scan_weight_grad(gb[0], y, h0, nd))
+            pb = (*pb, scan_weight_grad(pb[0], y, h0, nd))
             torch.cuda.synchronize()
             msg = []
-            for what, a, b_ in (("ys", got[0], plain[0]),
+            for what, a, b_ in (("y", got[0], plain[0]),
                                 ("c_T", got[1], plain[1]),
                                 ("cs", got[2], plain[2]),
                                 ("dxp", gb[0], pb[0]), ("dh0", gb[1], pb[1]),
@@ -1369,16 +1411,23 @@ def main() -> int:
                     raise AssertionError(f"{key} {what}: {err} (peak "
                                          f"{peak}, tolerance {tol} of "
                                          f"max(1, peak))")
-                if what in ("ys", "c_T", "cs"):
+                if what in ("y", "c_T", "cs"):
                     fwd_err = max(fwd_err, err)
                 elif what != "dW_hh":   # the product's, not the kernel's
                     bwd_err = max(bwd_err, err)
                 msg.append(f"{what} {err:.2e}/{peak:.3g}")
+            drift = [(v[k].double() - exact[k]).abs().max().item()
+                     for v in (got, plain) for k in (0, 1)]
             log(f"  {key} xp {list(xp.shape)}"
-                + (", h0/c0" if h0 is not None else "") + ": max|kernel - "
+                + (", h0/c0" if h0 is not None else "")
+                + f", tiles of {tile_rows(bb, nd, dev, 'fwd')} / "
+                f"{tile_rows(bb, nd, dev, 'bwd')} rows: max|kernel - "
                 f"plain| / peak: {', '.join(msg)} (tolerance {tol} of "
-                f"max(1, peak))")
-            train_scans[key] = (xp, w_hh, h0, c0, dys, dct, ys, cs)
+                f"max(1, peak)); from float64: kernel y {drift[0]:.2e} c_T "
+                f"{drift[1]:.2e}, plain y {drift[2]:.2e} c_T {drift[3]:.2e}")
+            del exact, plain, pb
+            if key != "tail":
+                train_scans[key] = (xp, w_hh, h0, c0, dys, dct, y, cs)
         res["bilstm_scan_fwd_train"]["max_abs_err"] = fwd_err
         res["bilstm_scan_bwd"]["max_abs_err"] = bwd_err
     phase("bilstm_scan training kernels vs plain", 60, train_scan_check)
@@ -1610,7 +1659,8 @@ def main() -> int:
                 f"every block checkpointed: {remat_ms:.1f} ms a step, peak "
                 f"{remat_gb:.2f} GB [{smi}]")
         for key, (xp, w_hh, h0, c0, dys, dct, ys, cs) in train_scans.items():
-            t_, nd, bb, _ = xp.shape
+            bb, t_, dg = xp.shape
+            nd = dg // 256
             h = 64
             fwd = lambda i: bilstm_scan_train_cuda(xp, w_hh, h0, c0)  # noqa
             bwd = lambda i: bilstm_scan_bwd_cuda(  # noqa: E731
@@ -1618,9 +1668,9 @@ def main() -> int:
             for _ in range(3):
                 fwd(0), bwd(0)
             f_ms, b_ms = device_ms(fwd, 20), device_ms(bwd, 20)
-            pf_ms = wall_ms(lambda i: bilstm_scan_reference(
+            pf_ms = wall_ms(lambda i: bilstm_train_reference(
                 xp, w_hh, torch.float32, h0, c0, with_cs=True), 2)
-            pb_ms = wall_ms(lambda i: bilstm_scan_backward_reference(
+            pb_ms = wall_ms(lambda i: bilstm_train_backward_reference(
                 xp, w_hh, h0, c0, ys, cs, dys, dct), 2)
             lstm = torch.nn.LSTM(h, h, batch_first=True,
                                  bidirectional=nd == 2).to(dev)

@@ -32,11 +32,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # xp, w_hh, ys, c_T, T, B, H, stream
     "bilstm_scan_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # xp, w_hh, h0, c0, ys, cs, c_T, T, D, B, H, stream
-    "bilstm_scan_train_f32": [_P] * 7 + [_I] * 4 + [_P],
-    # xp, w_hh, h0, c0, ys, cs, dys, dc_T, dxp, dh0, dc0, T, D, B, H,
+    # xp, w_hh, h0, c0, y, cs, c_T, T, D, N, H, R, stream
+    "bilstm_train_fwd_f32": [_P] * 7 + [_I] * 5 + [_P],
+    # xp, w_hh, h0, c0, y, cs, dy, dc_T, dxp, dh0, dc0, T, D, N, H, R,
     # stream
-    "bilstm_scan_bwd_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "bilstm_train_bwd_f32": [_P] * 11 + [_I] * 5 + [_P],
+    # R, backward, int[5] out
+    "bilstm_train_info": [_I, _I, _P],
+    # d, out, n, stream
+    "bilstm_train_rcp_f32": [_P, _P, _I, _P],
     # q, k_t, v_t, k_buf, k_scale, v_buf, v_scale, pos, arrivals, out,
     # B, Dk, Dv, WP, w, F, nh, inv_sqrt, stream
     "ring_int8_step_f32": [_P] * 10 + [_I] * 7 + [_F, _P],

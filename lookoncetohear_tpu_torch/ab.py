@@ -29,6 +29,20 @@ within one call, on one card:
     checkpoint, in N pairs whose first version alternates; then each
     version's median and quartiles, and the pairs in which this
     version's int8 step was the faster.
+  * the two training scan kernels (`csrc/bilstm_scan.cu`: the
+    state-saving forward and the backward) at the committed training
+    configs' four scan shapes, from the same inputs in the models'
+    layout [N, T, D*4H]. A version's entries are called with the
+    signature and layout its source declares: a version that takes the
+    scan layout [T, D, N, 4H] (`bilstm_scan_train_f32`) gets flipped and
+    permuted copies, made outside the timing; a version with tiles
+    (`bilstm_train_fwd_f32`) gets this tree's choice of tile.
+  * one training step of each task (`TSETask`, `EmbedTask`) at its
+    config's batch of 8 x 5 s from a seeded random init: ms a step from
+    call to synchronize (median after the first), peak GB, and from one
+    profiled step the device time of all kernels and of the layout
+    copies (`direct_copy`); each version in a process of its own, in
+    the order this, baseline, baseline, this (TRAIN_STEPS steps).
 The kernels run in the order this, baseline, baseline, this. Prints one
 JSON object per measurement, each with the card's name and power limit,
 and writes them to --out if given.
@@ -51,8 +65,9 @@ from lookoncetohear_tpu_torch.ops import ring_step as rs
 from lookoncetohear_tpu_torch.ops.attn_step import (VARIANTS,
                                                     attention_step_cuda,
                                                     attention_step_reference)
-from lookoncetohear_tpu_torch.ops.bilstm_scan import (bilstm_scan_cuda,
-                                                      bilstm_scan_reference)
+from lookoncetohear_tpu_torch.ops.bilstm_scan import (
+    bilstm_scan_bwd_cuda, bilstm_scan_cuda, bilstm_scan_reference,
+    bilstm_scan_train_cuda, scan_layout, tile_rows)
 from lookoncetohear_tpu_torch.timing import attn_entry, attn_inputs, device_ms
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -67,6 +82,14 @@ RING = dict(b=64, f=97, nh=4, e=6, vd=16, wp=56, w=50)
 # the float ring at the serving shape: 64 streams x 4 heads, 49 slots
 ATTN = dict(rows=256, w1=49, dk=97 * 6, dv=97 * 16)
 ORDER = ("this", "baseline", "baseline", "this")   # the kernels
+# the committed training configs' scans, (T, D, N): TSE intra and inter
+# (from a carried state), EmbedNet intra and inter
+TRAIN_SCANS = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
+               "embed_intra": (62, 2, 10008),
+               "embed_inter": (1248, 2, 520)}
+TRAIN_CONFIGS = {"TSETask": ROOT / "configs" / "tsh_synthetic_5k.json",
+                 "EmbedTask": ROOT / "configs" / "embed_synthetic_5k.json"}
+TRAIN_STEPS = 5  # steps a version's process times; the first is not kept
 
 # Run in a process of its own with one version's tree first on sys.path:
 # its engine step and its ring-step wrapper, through entry points that
@@ -139,6 +162,51 @@ print(json.dumps(out))
 """
 
 
+# One version's training step, in a process of its own with its tree
+# first on sys.path, through entry points every version with training
+# has. Prints one JSON object.
+_TRAIN_PROBE = r"""
+import json, sys, tempfile, time
+import numpy as np, torch
+tree, cfg, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
+sys.path.insert(0, tree)
+from torch.profiler import ProfilerActivity, profile
+from lookoncetohear_tpu_torch import utils
+from lookoncetohear_tpu_torch.data.loader import collate
+from lookoncetohear_tpu_torch.train.trainer import (Trainer, build_task,
+                                                    to_device)
+dev = torch.device("cuda")
+hp = utils.Params(cfg)
+ds = utils.import_attr(hp.train_dataset)(**hp.train_data_args)
+host = collate([ds[i] for i in range(hp.batch_size)])
+torch.manual_seed(0)
+task = build_task(hp)
+with tempfile.TemporaryDirectory() as tmp, utils.full_float32():
+    tr = Trainer(task, tmp, epochs=1, device=dev)
+    batch = to_device(task.device_batch(host, train=True), dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch, 0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_step(batch, 0)
+        torch.cuda.synchronize()
+kern = [ev for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA]
+print(json.dumps(dict(
+    step_ms=float(np.median(ms[1:])), first_ms=ms[0],
+    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    device_ms=sum(ev.time_range.elapsed_us() for ev in kern) / 1e3,
+    direct_copy_ms=sum(ev.time_range.elapsed_us() for ev in kern
+                       if "direct_copy" in ev.name) / 1e3)))
+"""
+
+
 def _smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -201,6 +269,15 @@ def main() -> int:
         [ctypes.c_int] * 3 + [ctypes.c_void_p]
     base_arrivals = _bind_ring(
         base, base_csrc / "ring_int8_step.cu")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    base_tiles = "bilstm_train_fwd_f32" in \
+        (base_csrc / "bilstm_scan.cu").read_text()
+    if base_tiles:
+        base.bilstm_train_fwd_f32.argtypes = [P] * 7 + [I] * 5 + [P]
+        base.bilstm_train_bwd_f32.argtypes = [P] * 11 + [I] * 5 + [P]
+    else:
+        base.bilstm_scan_train_f32.argtypes = [P] * 7 + [I] * 4 + [P]
+        base.bilstm_scan_bwd_f32.argtypes = [P] * 11 + [I] * 4 + [P]
     split_libs = {}
     for sp, proc in split_builds.items():
         log, _ = proc.communicate(timeout=_build.NVCC_TIMEOUT_S)
@@ -272,6 +349,83 @@ def main() -> int:
                 fns[name](i)
             emit(kernel="bilstm_scan", version=name, rows=b,
                  us=device_ms(fns[name], 100) * 1e3)
+
+    # ---- the training kernels, from inputs in the models' layout; the
+    # baseline gets them in the layout its entries take
+    for key, (t_, nd, n) in TRAIN_SCANS.items():
+        def r_(*shape, k=0.5):
+            return torch.randn(shape, generator=g, device=dev) * k
+        xp, w_hh = r_(n, t_, nd * 256), r_(nd, 64, 256, k=0.3)
+        h0 = c0 = None
+        if key == "tse_inter":
+            h0, c0 = r_(nd, n, 64), r_(nd, n, 64)
+        dy, dct = r_(n, t_, nd * 64, k=1.0), r_(nd, n, 64, k=1.0)
+        y, c_t, cs = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
+        p = (lambda t: None if t is None else t.data_ptr())
+        if base_tiles:
+            bx, bdy = xp, dy
+            b_out = [torch.empty_like(y), torch.empty_like(c_t),
+                     torch.empty_like(cs)]
+            b_grad = [torch.empty_like(xp), torch.empty_like(c_t),
+                      torch.empty_like(c_t)]
+        else:
+            bx, bdy = scan_layout(xp, nd), scan_layout(dy, nd)
+            b_out = [torch.empty(t_, nd, n, 64, device=dev),
+                     torch.empty_like(c_t),
+                     torch.empty(t_, nd, n, 64, device=dev)]
+            b_grad = [torch.empty_like(bx), torch.empty_like(c_t),
+                      torch.empty_like(c_t)]
+
+        def base_fwd(i):
+            yb, cb, csb = b_out
+            if base_tiles:
+                rc = base.bilstm_train_fwd_f32(
+                    p(bx), p(w_hh), p(h0), p(c0), p(yb), p(csb), p(cb), t_,
+                    nd, n, 64, tile_rows(n, nd, dev, "fwd"), stream())
+            else:
+                rc = base.bilstm_scan_train_f32(
+                    p(bx), p(w_hh), p(h0), p(c0), p(yb), p(csb), p(cb), t_,
+                    nd, n, 64, stream())
+            _build.check(rc, "baseline training forward")
+
+        def base_bwd(i):
+            yb, _, csb = b_out
+            dx, dh, dc = b_grad
+            if base_tiles:
+                rc = base.bilstm_train_bwd_f32(
+                    p(bx), p(w_hh), p(h0), p(c0), p(yb), p(csb), p(bdy),
+                    p(dct), p(dx), p(dh), p(dc), t_, nd, n, 64,
+                    tile_rows(n, nd, dev, "bwd"), stream())
+            else:
+                rc = base.bilstm_scan_bwd_f32(
+                    p(bx), p(w_hh), p(h0), p(c0), p(yb), p(csb), p(bdy),
+                    p(dct), p(dx), p(dh), p(dc), t_, nd, n, 64, stream())
+            _build.check(rc, "baseline training backward")
+        fns = {("fwd", "this"): lambda i: bilstm_scan_train_cuda(
+                   xp, w_hh, h0, c0),
+               ("bwd", "this"): lambda i: bilstm_scan_bwd_cuda(
+                   xp, w_hh, h0, c0, y, cs, dy, dct),
+               ("fwd", "baseline"): base_fwd, ("bwd", "baseline"): base_bwd}
+        base_fwd(0)
+        base_bwd(0)
+        dxp = fns[("bwd", "this")](0)[0]
+        torch.cuda.synchronize()
+        # the two versions' outputs, in the baseline's layout
+        mine = (y, dxp) if base_tiles else (scan_layout(y, nd),
+                                            scan_layout(dxp, nd))
+        emit(kernel="bilstm_train", shape=key,
+             what="max |this - baseline|",
+             y=(mine[0] - b_out[0]).abs().max().item(),
+             dxp=(mine[1] - b_grad[0]).abs().max().item())
+        for kname in ("fwd", "bwd"):
+            for version in ORDER:
+                fn = fns[(kname, version)]
+                for i in range(3):
+                    fn(i)
+                emit(kernel=f"bilstm_train_{kname}", shape=key,
+                     version=version, us=device_ms(fn, 10) * 1e3)
+        del xp, dy, y, cs, bx, bdy, b_out, b_grad, dxp, fns
+        torch.cuda.empty_cache()
 
     # ---- B1, three rings so the 92 MB do not sit in the 50 MB L2
     b, f, nh, e, vd, wp, w = (RING[k] for k in
@@ -367,6 +521,23 @@ def main() -> int:
         for name in ("this", "baseline")[::1 if k % 2 == 0 else -1]:
             if probe(name, ROOT if name == "this" else base_tree, k):
                 return 1
+    # ---- a training step of each task, one process per version and
+    # turn: this, baseline, baseline, this
+    for task, cfg in TRAIN_CONFIGS.items():
+        for turn, name in enumerate(ORDER):
+            proc = subprocess.run(
+                [sys.executable, "-c", _TRAIN_PROBE,
+                 str(ROOT if name == "this" else base_tree), str(cfg),
+                 str(TRAIN_STEPS)], capture_output=True, text=True,
+                timeout=900)
+            if proc.returncode:
+                print(proc.stderr, file=sys.stderr)
+                return 1
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            emit(what="training step, 8 x 5 s", task=task, version=name,
+                 turn=turn, **got)
+            seen.setdefault(("training step ms", task, name), []).append(
+                got["step_ms"])
     for key, runs in seen.items():
         emit(what=f"{key[0]}, summary", ring=key[1], version=key[2],
              runs=len(runs), median=float(np.median(runs)),

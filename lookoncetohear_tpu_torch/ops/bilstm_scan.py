@@ -9,11 +9,13 @@ plain PyTorch versions.
   [T, 2, B, H], c_T [2, B, H]).
 * `bilstm_scan_train` (training and the inter-time LSTM): the same
   recurrence over D = 1 or 2 directions from an optional (h0, c0)
-  [D, B, H], as a `torch.autograd.Function` (`BiLSTMScan`) whose
-  forward saves every cell state and whose backward is a kernel of its
-  own. They stand for the differentiated `lax.scan` of
-  `lookoncetohear_tpu/ops/lstm.py` (`_lstm_scan`, `_chunked_scan`):
-  the TPU kernel has no gradient.
+  [D, N, H], in the models' own layouts: xp [N, T, D*4H] as one GEMM
+  makes it, y [N, T, D*H] as the LSTM returns it, direction 1 running
+  backwards in time inside the kernels. A `torch.autograd.Function`
+  (`BiLSTMScan`) whose forward saves every cell state and whose
+  backward is a kernel of its own. They stand for the differentiated
+  `lax.scan` of `lookoncetohear_tpu/ops/lstm.py` (`_lstm_scan`,
+  `_chunked_scan`): the TPU kernel has no gradient.
 
 Everything runs in float32 on the card. A wrapper launches its kernel
 for CUDA tensors and uses the plain version only for CPU tensors.
@@ -21,13 +23,23 @@ for CUDA tensors and uses the plain version only for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from lookoncetohear_tpu_torch import _build
 
-# the hidden width the kernels are instantiated for (W_hh's slices live
-# in each thread's registers): the model's H
+# the hidden width the kernels are instantiated for (B2 keeps W_hh's
+# slices in each thread's registers): the model's H
 KERNEL_HIDDEN = 64
+# rows a block of each training kernel may take, and the relative time
+# of one wave of its blocks (every SM running as many as fit) a step:
+# fitted to `python3 -m lookoncetohear_tpu_torch.scan_sweep` on an H100
+# over the training, full-forward and eval scan shapes, where it picks
+# the fastest tile of each kernel at each shape
+TRAIN_TILE_COST = {"fwd": {4: 2.1, 8: 3.75, 16: 6.4},
+                   "bwd": {4: 3.1, 8: 5.6, 16: 10.5}}
 
 
 def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
@@ -92,31 +104,81 @@ def bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs, dys, dc_t):
     return dxp, dh_next, dc_next
 
 
-def scan_weight_grad(dxp, ys, h0):
-    """dW_hh [D, H, 4H] = sum over t and b of h_{t-1}^T dgates_t
-    (h_{t-1} = ys[t-1], or h0 / zero at t=0): one batched product per
-    (step, direction), then a sum over the steps. As a single product
-    over T*B rows the output is only [H, 4H], 16 tiles of cuBLAS's
-    32 x 32: 16 blocks on a 132-SM card (~8.6 ms at the TSE intra
-    shape on an H100)."""
-    first = torch.zeros_like(ys[:1]) if h0 is None else h0[None]
-    h_prev = torch.cat([first, ys[:-1]])            # [T, D, B, H]
-    return torch.matmul(h_prev.transpose(2, 3), dxp).sum(0)
+def scan_layout(a, nd):
+    """[N, T, D*K] -> the scan layout [T, D, N, K] of B2 and the loops,
+    direction 1 time-flipped, contiguous (the loops take a step's slice
+    at a time)."""
+    n, t_len, dk = a.shape
+    a = a.reshape(n, t_len, nd, dk // nd).permute(1, 2, 0, 3)
+    if nd == 2:
+        a = torch.stack([a[:, 0], a[:, 1].flip(0)], 1)
+    return a.contiguous()
 
 
-def _check(xp, w_hh, name, directions=(1, 2), **states):
-    """Raise on what the kernels do not take; returns (T, D, B, H)."""
-    if xp.dim() != 4:
-        raise ValueError(f"{name}: xp must be [T, D, B, 4H], got "
-                         f"{tuple(xp.shape)}")
-    t_len, nd, b, g4 = xp.shape
-    hidden = g4 // 4
+def _from_scan(a):
+    """The inverse of `scan_layout`: [T, D, N, K] -> [N, T, D*K],
+    contiguous as the kernels' outputs."""
+    t_len, nd, n, k = a.shape
+    if nd == 2:
+        a = torch.stack([a[:, 0], a[:, 1].flip(0)], 1)
+    return a.permute(2, 0, 1, 3).reshape(n, t_len, nd * k).contiguous()
+
+
+def bilstm_train_reference(xp, w_hh, dtype=torch.float32, h0=None, c0=None,
+                           with_cs=False):
+    """Plain version of the training forward in the models' layouts:
+    xp [N, T, D*4H], w_hh [D, H, 4H], (h0, c0) [D, N, H] (None: zero),
+    direction 1 over time T-1..0. Returns (y [N, T, D*H], c_T
+    [D, N, H]), with `with_cs` also cs [N, T, D*H]; the loop of
+    `bilstm_scan_reference` on permuted copies."""
+    out = bilstm_scan_reference(scan_layout(xp, w_hh.shape[0]), w_hh,
+                                dtype, h0, c0, with_cs)
+    if with_cs:
+        return _from_scan(out[0]), out[1], _from_scan(out[2])
+    return _from_scan(out[0]), out[1]
+
+
+def bilstm_train_backward_reference(xp, w_hh, h0, c0, y, cs, dy, dc_t):
+    """Plain version of the training backward in the models' layouts
+    (as `bilstm_train_reference`; dy [N, T, D*H]): (dxp [N, T, D*4H],
+    dh0, dc0 [D, N, H]), through `bilstm_scan_backward_reference`."""
+    nd = w_hh.shape[0]
+    dxp, dh0, dc0 = bilstm_scan_backward_reference(
+        scan_layout(xp, nd), w_hh, h0, c0, scan_layout(y, nd),
+        scan_layout(cs, nd), None if dy is None else scan_layout(dy, nd),
+        dc_t)
+    return _from_scan(dxp), dh0, dc0
+
+
+def scan_weight_grad(dxp, y, h0, nd):
+    """dW_hh [D, H, 4H] = sum over rows and steps of h_prev^T dgates, in
+    the models' layouts (dxp [N, T, D*4H], y [N, T, D*H], h0 [D, N, H]
+    or None). h_prev of direction 0 at time t is y at t-1 (h0 at t =
+    0); of direction 1, which runs backwards, y at t+1 (h0 at t = T-1).
+    One batched product over the steps ([H, N] @ [N, 4H] each, on views
+    of y and dxp), then a sum: as a single product over T*N rows the
+    output is only [H, 4H], 16 tiles of cuBLAS's 32 x 32, 16 blocks on
+    a 132-SM card (~8.6 ms at the TSE intra shape on an H100)."""
+    hidden = y.shape[2] // nd
+    out = []
+    for d in range(nd):
+        dx = dxp[..., 4 * hidden * d:4 * hidden * (d + 1)]
+        yd = y[..., hidden * d:hidden * (d + 1)]
+        # (h_prev, dgates) of every step but the first, and the first's
+        h_prev, dg, dg0 = (yd[:, :-1], dx[:, 1:], dx[:, 0]) if d == 0 \
+            else (yd[:, 1:], dx[:, :-1], dx[:, -1])
+        w = torch.matmul(h_prev.permute(1, 2, 0), dg.transpose(0, 1)).sum(0)
+        out.append(w if h0 is None else w + h0[d].T @ dg0)
+    return torch.stack(out)
+
+
+def _check(xp, w_hh, name, g4, **states):
+    """Raise on what the kernels do not take: xp and w_hh float32,
+    contiguous, on one GPU, gate width g4 = 4H with H = KERNEL_HIDDEN;
+    each state (tensor or None, shape) contiguous float32 of its shape
+    on xp's GPU."""
     if xp.device.type != "cuda" or w_hh.device != xp.device:
         raise ValueError(f"{name} needs its tensors on one GPU")
-    if nd not in directions or g4 != 4 * hidden or t_len < 1 \
-            or tuple(w_hh.shape) != (nd, hidden, g4):
-        raise ValueError(f"{name}: bad shapes xp {tuple(xp.shape)} "
-                         f"w_hh {tuple(w_hh.shape)}")
     for key, (v, shape) in states.items():
         if v is not None and (v.device != xp.device
                               or v.dtype != torch.float32
@@ -128,9 +190,8 @@ def _check(xp, w_hh, name, directions=(1, 2), **states):
         raise TypeError(f"{name} takes float32 xp and w_hh")
     if not (xp.is_contiguous() and w_hh.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
-    if hidden != KERNEL_HIDDEN:
-        raise ValueError(f"{name} takes H={KERNEL_HIDDEN}, not {hidden}")
-    return t_len, nd, b, hidden
+    if g4 != 4 * KERNEL_HIDDEN:
+        raise ValueError(f"{name} takes H={KERNEL_HIDDEN}, not {g4 // 4}")
 
 
 def _ptr(t):
@@ -144,7 +205,16 @@ def bilstm_scan_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
         raise RuntimeError(
             "bilstm_scan_cuda is inference only and would drop the "
             "gradient of xp / w_hh; use bilstm_scan_train")
-    t_len, _, b, hidden = _check(xp, w_hh, "bilstm_scan_cuda", (2,))
+    if xp.dim() != 4:
+        raise ValueError(f"bilstm_scan_cuda: xp must be [T, 2, B, 4H], got "
+                         f"{tuple(xp.shape)}")
+    t_len, nd, b, g4 = xp.shape
+    hidden = g4 // 4
+    _check(xp, w_hh, "bilstm_scan_cuda", g4)
+    if nd != 2 or g4 != 4 * hidden or t_len < 1 \
+            or tuple(w_hh.shape) != (2, hidden, g4):
+        raise ValueError(f"bilstm_scan_cuda: bad shapes xp {tuple(xp.shape)} "
+                         f"w_hh {tuple(w_hh.shape)}")
     ys = torch.empty((t_len, 2, b, hidden), device=xp.device,
                      dtype=torch.float32)
     c_t = torch.empty((2, b, hidden), device=xp.device, dtype=torch.float32)
@@ -160,53 +230,98 @@ def bilstm_scan_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
 bilstm_scan_cuda.launches = 0
 
 
+def _train_shapes(xp, w_hh, name):
+    """(N, T, D, H) of the training kernels' inputs xp [N, T, D*4H] and
+    w_hh [D, H, 4H]; raises on other shapes."""
+    if xp.dim() != 3 or w_hh.dim() != 3:
+        raise ValueError(f"{name}: xp must be [N, T, D*4H] and w_hh "
+                         f"[D, H, 4H], got {tuple(xp.shape)}, "
+                         f"{tuple(w_hh.shape)}")
+    n, t_len, dg = xp.shape
+    nd, hidden, g4 = w_hh.shape
+    if nd not in (1, 2) or g4 != 4 * hidden or dg != nd * g4 or n < 1 \
+            or t_len < 1:
+        raise ValueError(f"{name}: bad shapes xp {tuple(xp.shape)} "
+                         f"w_hh {tuple(w_hh.shape)}")
+    return n, t_len, nd, hidden
+
+
+@functools.lru_cache(maxsize=None)
+def _card_facts(device, kernel: str) -> tuple:
+    """(SMs, {R: resident blocks of the tile per SM}) of `kernel` on the
+    device, from the occupancy the kernels report."""
+    lib = _build.load_library()
+    resident = {}
+    for r in TRAIN_TILE_COST[kernel]:
+        out = (ctypes.c_int * 5)()
+        _build.check(lib.bilstm_train_info(r, kernel == "bwd", out),
+                     "bilstm_train_info")
+        resident[r] = out[4]
+    return (torch.cuda.get_device_properties(device).multi_processor_count,
+            resident)
+
+
+def tile_rows(n: int, nd: int, device, kernel: str) -> int:
+    """Rows a block of the training `kernel` ("fwd" or "bwd") takes for n
+    rows and nd directions: the tile whose grid runs in the least time,
+    taken as its waves on the busiest SM times its cost a wave
+    (TRAIN_TILE_COST); on a tie the smaller tile."""
+    sms, resident = _card_facts(device, kernel)
+    cost = TRAIN_TILE_COST[kernel]
+
+    def time(r):
+        per_sm = -(-nd * -(-n // r) // sms)
+        return -(-per_sm // resident[r]) * cost[r]
+    return min(sorted(cost), key=time)
+
+
 def bilstm_scan_train_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
-    """Launch the state-saving forward: (ys, c_T, cs) as
-    `bilstm_scan_reference(..., with_cs=True)`; without `save_cs` (a
+    """Launch the state-saving forward: (y, c_T, cs) as
+    `bilstm_train_reference(..., with_cs=True)`; without `save_cs` (a
     pass that keeps no gradient) cs is not written and comes back
     None."""
-    t_len, nd, b, hidden = xp.shape[0], xp.shape[1], xp.shape[2], \
-        xp.shape[3] // 4
-    _check(xp, w_hh, "bilstm_scan_train_cuda", h0=(h0, (nd, b, hidden)),
-           c0=(c0, (nd, b, hidden)))
-    ys = torch.empty((t_len, nd, b, hidden), device=xp.device,
-                     dtype=torch.float32)
-    cs = torch.empty_like(ys) if save_cs else None
-    c_t = torch.empty((nd, b, hidden), device=xp.device, dtype=torch.float32)
+    n, t_len, nd, hidden = _train_shapes(xp, w_hh, "bilstm_scan_train_cuda")
+    _check(xp, w_hh, "bilstm_scan_train_cuda", 4 * hidden,
+           h0=(h0, (nd, n, hidden)), c0=(c0, (nd, n, hidden)))
+    y = torch.empty((n, t_len, nd * hidden), device=xp.device,
+                    dtype=torch.float32)
+    cs = torch.empty_like(y) if save_cs else None
+    c_t = torch.empty((nd, n, hidden), device=xp.device, dtype=torch.float32)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(xp.device).cuda_stream
-    rc = lib.bilstm_scan_train_f32(
-        xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), ys.data_ptr(),
-        _ptr(cs), c_t.data_ptr(), t_len, nd, b, hidden, stream)
-    _build.check(rc, "bilstm_scan_train_f32")
+    rc = lib.bilstm_train_fwd_f32(
+        xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), y.data_ptr(),
+        _ptr(cs), c_t.data_ptr(), t_len, nd, n, hidden,
+        tile_rows(n, nd, xp.device, "fwd"), stream)
+    _build.check(rc, "bilstm_train_fwd_f32")
     bilstm_scan_train_cuda.launches += 1
-    return ys, c_t, cs
+    return y, c_t, cs
 
 
 bilstm_scan_train_cuda.launches = 0
 
 
-def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, ys, cs, dys, dc_t):
+def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
     """Launch the backward: (dxp, dh0, dc0) as
-    `bilstm_scan_backward_reference`."""
-    t_len, nd, b, hidden = xp.shape[0], xp.shape[1], xp.shape[2], \
-        xp.shape[3] // 4
-    seq, state = (t_len, nd, b, hidden), (nd, b, hidden)
-    _check(xp, w_hh, "bilstm_scan_bwd_cuda", h0=(h0, state),
-           c0=(c0, state), ys=(ys, seq), cs=(cs, seq), dys=(dys, seq),
+    `bilstm_train_backward_reference`."""
+    n, t_len, nd, hidden = _train_shapes(xp, w_hh, "bilstm_scan_bwd_cuda")
+    seq, state = (n, t_len, nd * hidden), (nd, n, hidden)
+    _check(xp, w_hh, "bilstm_scan_bwd_cuda", 4 * hidden, h0=(h0, state),
+           c0=(c0, state), y=(y, seq), cs=(cs, seq), dy=(dy, seq),
            dc_t=(dc_t, state))
-    if ys is None or cs is None:
-        raise ValueError("bilstm_scan_bwd_cuda needs the forward's ys and cs")
+    if y is None or cs is None:
+        raise ValueError("bilstm_scan_bwd_cuda needs the forward's y and cs")
     dxp = torch.empty_like(xp)
     dh0 = torch.empty(state, device=xp.device, dtype=torch.float32)
     dc0 = torch.empty_like(dh0)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(xp.device).cuda_stream
-    rc = lib.bilstm_scan_bwd_f32(
-        xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), ys.data_ptr(),
-        cs.data_ptr(), _ptr(dys), _ptr(dc_t), dxp.data_ptr(),
-        dh0.data_ptr(), dc0.data_ptr(), t_len, nd, b, hidden, stream)
-    _build.check(rc, "bilstm_scan_bwd_f32")
+    rc = lib.bilstm_train_bwd_f32(
+        xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), y.data_ptr(),
+        cs.data_ptr(), _ptr(dy), _ptr(dc_t), dxp.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), t_len, nd, n, hidden,
+        tile_rows(n, nd, xp.device, "bwd"), stream)
+    _build.check(rc, "bilstm_train_bwd_f32")
     bilstm_scan_bwd_cuda.launches += 1
     return dxp, dh0, dc0
 
@@ -215,48 +330,50 @@ bilstm_scan_bwd_cuda.launches = 0
 
 
 class BiLSTMScan(torch.autograd.Function):
-    """(xp, w_hh, h0, c0) -> (ys, c_T), differentiable in all four. On
-    the card the forward and backward are the kernels (plus one matmul
-    for dW_hh); on the CPU their plain versions, in the inputs' dtype."""
+    """(xp, w_hh, h0, c0) -> (y, c_T) in the models' layouts,
+    differentiable in all four. On the card the forward and backward
+    are the kernels (plus the batched product of dW_hh); on the CPU
+    their plain versions, in the inputs' dtype."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, h0, c0):
         if xp.device.type == "cpu":
-            ys, c_t, cs = bilstm_scan_reference(xp, w_hh, xp.dtype, h0, c0,
+            y, c_t, cs = bilstm_train_reference(xp, w_hh, xp.dtype, h0, c0,
                                                 with_cs=True)
         else:
-            ys, c_t, cs = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
-        ctx.save_for_backward(xp, w_hh, h0, c0, ys, cs)
-        return ys, c_t
+            y, c_t, cs = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
+        ctx.save_for_backward(xp, w_hh, h0, c0, y, cs)
+        return y, c_t
 
     @staticmethod
-    def backward(ctx, dys, dc_t):
-        xp, w_hh, h0, c0, ys, cs = ctx.saved_tensors
+    def backward(ctx, dy, dc_t):
+        xp, w_hh, h0, c0, y, cs = ctx.saved_tensors
         if xp.device.type == "cpu":
-            dxp, dh0, dc0 = bilstm_scan_backward_reference(
-                xp, w_hh, h0, c0, ys, cs, dys, dc_t)
+            dxp, dh0, dc0 = bilstm_train_backward_reference(
+                xp, w_hh, h0, c0, y, cs, dy, dc_t)
         else:
             dxp, dh0, dc0 = bilstm_scan_bwd_cuda(
-                xp, w_hh, h0, c0, ys, cs,
-                None if dys is None else dys.contiguous(),
+                xp, w_hh, h0, c0, y, cs,
+                None if dy is None else dy.contiguous(),
                 None if dc_t is None else dc_t.contiguous())
-        dw = scan_weight_grad(dxp, ys, h0) if ctx.needs_input_grad[1] \
-            else None
+        dw = scan_weight_grad(dxp, y, h0, w_hh.shape[0]) \
+            if ctx.needs_input_grad[1] else None
         return (dxp, dw, dh0 if ctx.needs_input_grad[2] else None,
                 dc0 if ctx.needs_input_grad[3] else None)
 
 
 def bilstm_scan_train(xp, w_hh, h0=None, c0=None):
-    """The differentiable recurrence: xp [T, D, B, 4H], w_hh [D, H, 4H],
-    optional (h0, c0) [D, B, H] -> (ys [T, D, B, H], c_T [D, B, H]).
-    On the card everything is cast to contiguous float32 first. When no
-    input needs a gradient it runs the forward alone, and on the card
-    saves no cell states."""
+    """The differentiable recurrence in the models' layouts: xp
+    [N, T, D*4H], w_hh [D, H, 4H], optional (h0, c0) [D, N, H] -> (y
+    [N, T, D*H], c_T [D, N, H]), direction 1 over time T-1..0. On the
+    card everything is cast to contiguous float32 first. When no input
+    needs a gradient it runs the forward alone, and on the card saves
+    no cell states."""
     needs_grad = torch.is_grad_enabled() and any(
         v is not None and v.requires_grad for v in (xp, w_hh, h0, c0))
     if xp.device.type == "cpu":
         if not needs_grad:
-            return bilstm_scan_reference(xp, w_hh, xp.dtype, h0, c0)
+            return bilstm_train_reference(xp, w_hh, xp.dtype, h0, c0)
         return BiLSTMScan.apply(xp, w_hh, h0, c0)
     xp, w_hh = xp.float().contiguous(), w_hh.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()

@@ -4,9 +4,10 @@ gate order i, f, g, o; w_ih [4H, I], w_hh [4H, H], two bias vectors.
 
 Every recurrence over T > 1 goes through `ops/bilstm_scan.py`: B2 for
 an inference BiLSTM, and the differentiable `bilstm_scan_train`
-(state-saving forward and backward kernels on the card) for a BiLSTM
-that needs a gradient and for the one-direction LSTM from a carried
-state. The T = 1 serving step is plain ops (`lstm_step`).
+(state-saving forward and backward kernels on the card, which take the
+projections [B, T, D*4H] and return y [B, T, D*H] as they are) for a
+BiLSTM that needs a gradient and for the one-direction LSTM from a
+carried state. The T = 1 serving step is plain ops (`lstm_step`).
 """
 
 from __future__ import annotations
@@ -55,16 +56,16 @@ def lstm_apply(params: LSTMParams, x, h0=None, c0=None):
     if t_len == 1:
         h, c = _cell(x_proj[:, 0] + h @ params.w_hh.T, c)
         return h[:, None], (h, c)
-    ys, c_t = bilstm_scan_train(x_proj.transpose(0, 1)[:, None],
-                                params.w_hh.T[None], h[None], c[None])
-    ys = ys[:, 0].transpose(0, 1).to(x_proj.dtype)       # [B, T, H]
+    ys, c_t = bilstm_scan_train(x_proj, params.w_hh.T[None], h[None],
+                                c[None])
+    ys = ys.to(x_proj.dtype)                              # [B, T, H]
     return ys, (ys[:, -1], c_t[0].to(x_proj.dtype))
 
 
 def bidir_scan_inputs(fwd: LSTMParams, bwd: LSTMParams, x):
-    """The recurrence's inputs for x [B, T, I]: xp [T, 2, B, 4H], the
-    input projections with both biases, direction 1 time-flipped, and
-    w_hh [2, H, 4H] (transposed)."""
+    """B2's inputs for x [B, T, I]: xp [T, 2, B, 4H], the input
+    projections with both biases, direction 1 time-flipped, and w_hh
+    [2, H, 4H] (transposed)."""
     xp_f = x @ fwd.w_ih.T + (fwd.b_ih + fwd.b_hh)
     xp_b = x.flip(1) @ bwd.w_ih.T + (bwd.b_ih + bwd.b_hh)
     w_hh = torch.stack([fwd.w_hh.T, bwd.w_hh.T], dim=0)     # [2, H, 4H]
@@ -75,21 +76,30 @@ def lstm_apply_bidir(fwd: LSTMParams, bwd: LSTMParams, x):
     """Bidirectional LSTM, both directions in one loop over T.
 
     x: [B, T, I] -> (y [B, T, 2H], ((hT_f, hT_b), (cT_f, cT_b))). The
-    input projections are plain matmuls; the recurrence runs in float32
-    and is cast back to x's dtype. Without a gradient to keep it goes
-    through `bilstm_scan` (B2 for GPU tensors), with one through the
-    differentiable `bilstm_scan_train`; either runs its plain version
-    for CPU tensors (`ops/bilstm_scan.py`)."""
+    recurrence runs in float32 and is cast back to x's dtype. Without a
+    gradient to keep it goes through `bilstm_scan` (B2 for GPU tensors;
+    `bidir_scan_inputs`), with one through the differentiable
+    `bilstm_scan_train`, whose layouts are the model's: one GEMM makes
+    both directions' projections [B, T, 8H], and the scan returns y as
+    it is. Either runs its plain version for CPU tensors
+    (`ops/bilstm_scan.py`)."""
     needs_grad = torch.is_grad_enabled() and (
         x.requires_grad or any(p.requires_grad for p in (*fwd, *bwd)))
-    scan = bilstm_scan_train if needs_grad else bilstm_scan
-    ys, c_t = scan(*bidir_scan_inputs(fwd, bwd, x))
-    ys = ys.to(x.dtype)
-    h_t = ys[-1]
-    c_t = c_t.to(x.dtype)
-    y = torch.cat([ys[:, 0].transpose(0, 1),
-                   ys[:, 1].transpose(0, 1).flip(1)], dim=-1)
-    return y, ((h_t[0], h_t[1]), (c_t[0], c_t[1]))
+    if not needs_grad:
+        ys, c_t = bilstm_scan(*bidir_scan_inputs(fwd, bwd, x))
+        ys = ys.to(x.dtype)
+        h_t = ys[-1]
+        c_t = c_t.to(x.dtype)
+        y = torch.cat([ys[:, 0].transpose(0, 1),
+                       ys[:, 1].transpose(0, 1).flip(1)], dim=-1)
+        return y, ((h_t[0], h_t[1]), (c_t[0], c_t[1]))
+    hidden = fwd.w_hh.shape[1]
+    xp = x @ torch.cat([fwd.w_ih, bwd.w_ih]).T + torch.cat(
+        [fwd.b_ih + fwd.b_hh, bwd.b_ih + bwd.b_hh])
+    y, c_t = bilstm_scan_train(xp, torch.stack([fwd.w_hh.T, bwd.w_hh.T]))
+    y, c_t = y.to(x.dtype), c_t.to(x.dtype)
+    # the backward direction ends at time 0
+    return y, ((y[:, -1, :hidden], y[:, 0, hidden:]), (c_t[0], c_t[1]))
 
 
 class LSTM(nn.Module):

@@ -463,24 +463,29 @@ def test_eval_cli_refusals_on_the_card(dev, tmp_path):
 
 # ---- training ----------------------------------------------------------------
 
-@pytest.mark.parametrize("t,nd,b", [(97, 2, 12), (97, 1, 12), (300, 1, 5)])
+@pytest.mark.parametrize("t,nd,b", [(97, 2, 12), (97, 1, 12), (300, 1, 5),
+                                    (97, 1, 5), (97, 2, 5), (97, 1, 37),
+                                    (97, 2, 37), (97, 1, 1040),
+                                    (97, 2, 1040)])
 def test_bilstm_train_kernels_match_plain(dev, t, nd, b):
-    """The state-saving forward (ys, c_T, every c; without cs the same
-    ys and c_T bit for bit) and the backward
-    (dxp, dh0, dc0) against their plain versions from a nonzero
+    """The state-saving forward (y, c_T, every c; without cs the same
+    y and c_T bit for bit) and the backward (dxp, dh0, dc0) in the
+    models' layouts against their plain versions from a nonzero
     (h0, c0): 2e-5 of each output's peak over 97 steps, 1e-4 over 300
-    (float32 rounding compounds along the chain)."""
+    (float32 rounding compounds along the chain). Row counts that no
+    tile (4, 8, 16 rows) divides leave a tail in the last block."""
     from lookoncetohear_tpu_torch.ops.bilstm_scan import (
-        bilstm_scan_backward_reference, bilstm_scan_bwd_cuda,
-        bilstm_scan_train_cuda)
+        bilstm_scan_bwd_cuda, bilstm_scan_train_cuda,
+        bilstm_train_backward_reference, bilstm_train_reference)
     g = torch.Generator().manual_seed(t + nd + b)
     r = lambda *s, k=0.5: (torch.randn(*s, generator=g) * k).to(dev)
-    xp, w = r(t, nd, b, 256), r(nd, 64, 256, k=0.3)
-    h0, c0, dys, dct = r(nd, b, 64), r(nd, b, 64), r(t, nd, b, 64), \
+    xp, w = r(b, t, nd * 256), r(nd, 64, 256, k=0.3)
+    h0, c0, dys, dct = r(nd, b, 64), r(nd, b, 64), r(b, t, nd * 64), \
         r(nd, b, 64)
     tol = 2e-5 if t <= 97 else 1e-4
     got = bilstm_scan_train_cuda(xp, w, h0, c0)
-    want = bilstm_scan_reference(xp, w, torch.float32, h0, c0, with_cs=True)
+    want = bilstm_train_reference(xp, w, torch.float32, h0, c0,
+                                  with_cs=True)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=0,
                                    atol=tol * max(1.0, e.abs().max().item()))
@@ -489,10 +494,27 @@ def test_bilstm_train_kernels_match_plain(dev, t, nd, b):
     assert torch.equal(lean[0], got[0]) and torch.equal(lean[1], got[1])
     ys, _, cs = want
     got = bilstm_scan_bwd_cuda(xp, w, h0, c0, ys, cs, dys, dct)
-    want = bilstm_scan_backward_reference(xp, w, h0, c0, ys, cs, dys, dct)
+    want = bilstm_train_backward_reference(xp, w, h0, c0, ys, cs, dys, dct)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=0,
                                    atol=tol * max(1.0, e.abs().max().item()))
+
+
+def test_training_reciprocal_is_the_ieee_quotient(dev):
+    """The training kernels' sigmoid takes 1 / (1 + exp(-x)) by the
+    division's fast path without its range check (`rcp_rn`): bit for
+    bit the IEEE quotient 1 / d on every float d in [1, 2) and on d
+    spread over [1, 2^126), the range its clamped input keeps to."""
+    from lookoncetohear_tpu_torch import _build
+    ones = torch.arange(1 << 23, device=dev, dtype=torch.int32) + (127 << 23)
+    g = torch.Generator(device=dev).manual_seed(0)
+    spread = torch.exp2(torch.rand(1 << 22, generator=g, device=dev) * 126)
+    d = torch.cat([ones.view(torch.float32), spread.clamp(1.0, 2.0 ** 125)])
+    out = torch.empty_like(d)
+    _build.check(_build.load_library().bilstm_train_rcp_f32(
+        d.data_ptr(), out.data_ptr(), d.numel(),
+        torch.cuda.current_stream().cuda_stream), "bilstm_train_rcp_f32")
+    assert torch.equal(out.view(torch.int32), (1.0 / d).view(torch.int32))
 
 
 def test_lstm_ops_route_through_the_training_kernels(dev):

@@ -4,6 +4,10 @@ gradients, one Adam + clip update and the plateau scheduler, npz
 checkpoints both ways, the trainer CLI and `import_attr`.
 
 Tolerances and why:
+  * the training scan's layout ([N, T, D*4H] in, [N, T, D*H] out,
+    direction 1 run backwards inside): its plain versions == the loops
+    in the scan layout on flipped and permuted copies, 1e-6 (the same
+    float32 arithmetic in the same order);
   * the scan backward: 1e-5, of each gradient's peak where that is
     over 1 (float32; the plain reverse loop, autograd and `jax.grad`
     differ only in summation order, which over 300 steps moves a
@@ -47,7 +51,8 @@ from lookoncetohear_tpu_torch import utils as tutils
 from lookoncetohear_tpu_torch.ops import lstm as tlstm
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (
     BiLSTMScan, bilstm_scan_backward_reference, bilstm_scan_cuda,
-    bilstm_scan_reference, bilstm_scan_train)
+    bilstm_scan_reference, bilstm_scan_train, bilstm_train_backward_reference,
+    bilstm_train_reference, scan_weight_grad)
 from lookoncetohear_tpu_torch.train import npz_ckpt
 from lookoncetohear_tpu_torch.train.schedule import \
     ReduceLROnPlateau as TPlateau
@@ -81,14 +86,56 @@ def _np(rng, shape, scale=1.0):
 # ---- the scan ----------------------------------------------------------------
 
 def _scan_case(seed, t, nd, b, h, states=True):
+    """Inputs of the training scan in the models' layouts: xp
+    [b, t, nd*4h], w [nd, h, 4h], h0/c0 [nd, b, h], dy [b, t, nd*h],
+    dc_T [nd, b, h]."""
     rng = np.random.default_rng(seed)
-    xp = _np(rng, (t, nd, b, 4 * h), 0.5)
+    xp = _np(rng, (b, t, nd * 4 * h), 0.5)
     w = _np(rng, (nd, h, 4 * h), 0.3)
     h0 = _np(rng, (nd, b, h), 0.5) if states else None
     c0 = _np(rng, (nd, b, h), 0.5) if states else None
-    dys = _np(rng, (t, nd, b, h))
+    dys = _np(rng, (b, t, nd * h))
     dct = _np(rng, (nd, b, h))
     return xp, w, h0, c0, dys, dct
+
+
+def _to_scan_np(a, nd):
+    """[N, T, D*K] -> [T, D, N, K] with direction 1 time-flipped, in
+    numpy: the loops' layout."""
+    n, t, dk = a.shape
+    a = a.reshape(n, t, nd, dk // nd).transpose(1, 2, 0, 3).copy()
+    if nd == 2:
+        a[:, 1] = a[::-1, 1]
+    return a
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+def test_train_layout_matches_scan_layout(nd):
+    """The plain training forward and backward in the models' layouts
+    == the scan-layout loops on the same inputs flipped and permuted in
+    numpy, outputs mapped back the same way."""
+    t, b, h = 7, 3, 8
+    xp, w, h0, c0, dys, dct = _scan_case(40 + nd, t, nd, b, h)
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    y, c_t, cs = bilstm_train_reference(tt(xp), tt(w), torch.float32,
+                                        tt(h0), tt(c0), with_cs=True)
+    ys, c_t2, css = bilstm_scan_reference(
+        tt(_to_scan_np(xp, nd)), tt(w), torch.float32, tt(h0), tt(c0),
+        with_cs=True)
+    for got, want in ((y, ys), (cs, css)):
+        np.testing.assert_allclose(_to_scan_np(got.numpy(), nd),
+                                   want.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(c_t.numpy(), c_t2.numpy(), rtol=0, atol=1e-6)
+    dxp, dh0, dc0 = bilstm_train_backward_reference(
+        tt(xp), tt(w), tt(h0), tt(c0), y, cs, tt(dys), tt(dct))
+    want = bilstm_scan_backward_reference(
+        tt(_to_scan_np(xp, nd)), tt(w), tt(h0), tt(c0), ys, css,
+        tt(_to_scan_np(dys, nd)), tt(dct))
+    np.testing.assert_allclose(_to_scan_np(dxp.numpy(), nd),
+                               want[0].numpy(), rtol=0, atol=1e-6)
+    for got, w_ in zip((dh0, dc0), want[1:]):
+        np.testing.assert_allclose(got.numpy(), w_.numpy(), rtol=0,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("t,nd,states", [(13, 1, True), (13, 2, False),
@@ -100,25 +147,46 @@ def test_scan_backward_reference_matches_autograd(t, nd, states):
         _scan_case(t + nd, t, nd, 3, 8, states))
     leaves = [a.clone().requires_grad_() if a is not None else None
               for a in (xp, w, h0, c0)]
-    ys, c_t = bilstm_scan_reference(*leaves[:2], torch.float32, *leaves[2:])
+    ys, c_t = bilstm_train_reference(*leaves[:2], torch.float32, *leaves[2:])
     grads = torch.autograd.grad(
         (ys * dys).sum() + (c_t * dct).sum(),
         [a for a in leaves if a is not None])
-    ys, c_t, cs = bilstm_scan_reference(xp, w, torch.float32, h0, c0,
-                                        with_cs=True)
-    dxp, dh0, dc0 = bilstm_scan_backward_reference(xp, w, h0, c0, ys, cs,
-                                                   dys, dct)
+    ys, c_t, cs = bilstm_train_reference(xp, w, torch.float32, h0, c0,
+                                         with_cs=True)
+    dxp, dh0, dc0 = bilstm_train_backward_reference(xp, w, h0, c0, ys, cs,
+                                                    dys, dct)
     torch.testing.assert_close(dxp, grads[0], atol=1e-5, rtol=0)
     if states:
         torch.testing.assert_close(dh0, grads[2], atol=1e-5, rtol=0)
         torch.testing.assert_close(dc0, grads[3], atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("nd,states", [(1, True), (1, False), (2, True),
+                                       (2, False)])
+def test_scan_weight_grad_matches_autograd(nd, states):
+    """dW_hh from the plain backward's dxp and the forward's y ==
+    autograd through the plain forward: direction 0's h_prev at time t
+    is y at t-1 (h0 at t = 0), direction 1's y at t+1 (h0 at T-1)."""
+    xp, w, h0, c0, dys, dct = map(
+        lambda a: None if a is None else torch.from_numpy(a),
+        _scan_case(60 + nd + 2 * states, 11, nd, 4, 8, states))
+    wl = w.clone().requires_grad_()
+    ys, c_t = bilstm_train_reference(xp, wl, torch.float32, h0, c0)
+    (want,) = torch.autograd.grad((ys * dys).sum() + (c_t * dct).sum(), [wl])
+    ys, _, cs = bilstm_train_reference(xp, w, torch.float32, h0, c0,
+                                       with_cs=True)
+    dxp = bilstm_train_backward_reference(xp, w, h0, c0, ys, cs, dys,
+                                          dct)[0]
+    got = scan_weight_grad(dxp, ys, h0, nd)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * max(1.0, want.abs().max().item()))
+
+
 @pytest.mark.parametrize("nd", [1, 2])
 def test_scan_function_gradcheck_float64(nd):
     rng = np.random.default_rng(nd)
     args = [torch.from_numpy(_np(rng, s, 0.5)).double().requires_grad_()
-            for s in ((4, nd, 1, 12), (nd, 3, 12), (nd, 1, 3), (nd, 1, 3))]
+            for s in ((1, 4, nd * 12), (nd, 3, 12), (nd, 1, 3), (nd, 1, 3))]
     assert torch.autograd.gradcheck(BiLSTMScan.apply, args)
     assert torch.autograd.gradcheck(
         lambda a, b: BiLSTMScan.apply(a, b, None, None), args[:2])
@@ -139,7 +207,8 @@ def _grads_close(got, want, tol=1e-5):
 @pytest.mark.parametrize("t", [13, 300])
 def test_bidir_scan_grad_matches_jax(t):
     """`lstm_apply_bidir` with a gradient (BiLSTMScan, the plain reverse
-    loop on the CPU) == jax.grad of the JAX scan branch; T = 300 also
+    loop on the CPU) == the JAX scan branch: y and both directions'
+    final (h, c), and jax.grad of a loss over all of them; T = 300 also
     runs the JAX package's chunked (rematted) scan."""
     rng = np.random.default_rng(t)
     b, i, h = 3, 6, 8
@@ -147,23 +216,33 @@ def test_bidir_scan_grad_matches_jax(t):
     x = _np(rng, (b, t, i))
     gy = _np(rng, (b, t, 2 * h))
     gcf, gcb = _np(rng, (b, h)), _np(rng, (b, h))
+    ghf, ghb = _np(rng, (b, h)), _np(rng, (b, h))
+
+    def jfwd(x, pf, pb):
+        return jlstm.lstm_apply_bidir(
+            jlstm.LSTMParams(*pf), jlstm.LSTMParams(*pb), x, fused=False)
 
     def jloss(x, pf, pb):
-        y, (_, (cf, cb)) = jlstm.lstm_apply_bidir(
-            jlstm.LSTMParams(*pf), jlstm.LSTMParams(*pb), x, fused=False)
-        return jnp.sum(y * gy) + jnp.sum(cf * gcf) + jnp.sum(cb * gcb)
+        y, ((hf, hb), (cf, cb)) = jfwd(x, pf, pb)
+        return jnp.sum(y * gy) + jnp.sum(cf * gcf) + jnp.sum(cb * gcb) \
+            + jnp.sum(hf * ghf) + jnp.sum(hb * ghb)
 
-    jg = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
-        jnp.asarray(x), [jnp.asarray(a) for a in pf],
-        [jnp.asarray(a) for a in pb])
+    jargs = (jnp.asarray(x), [jnp.asarray(a) for a in pf],
+             [jnp.asarray(a) for a in pb])
+    jy, ((jhf, jhb), (jcf, jcb)) = jax.jit(jfwd)(*jargs)
+    jg = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(*jargs)
     tx = torch.from_numpy(x).requires_grad_()
     tpf = [torch.from_numpy(a).requires_grad_() for a in pf]
     tpb = [torch.from_numpy(a).requires_grad_() for a in pb]
-    y, (_, (cf, cb)) = tlstm.lstm_apply_bidir(
+    y, ((hf, hb), (cf, cb)) = tlstm.lstm_apply_bidir(
         tlstm.LSTMParams(*tpf), tlstm.LSTMParams(*tpb), tx)
+    _grads_close([a.detach().numpy() for a in (y, hf, hb, cf, cb)],
+                 [jy, jhf, jhb, jcf, jcb])
     loss = (y * torch.from_numpy(gy)).sum() \
         + (cf * torch.from_numpy(gcf)).sum() \
-        + (cb * torch.from_numpy(gcb)).sum()
+        + (cb * torch.from_numpy(gcb)).sum() \
+        + (hf * torch.from_numpy(ghf)).sum() \
+        + (hb * torch.from_numpy(ghb)).sum()
     tg = torch.autograd.grad(loss, [tx, *tpf, *tpb])
     _grads_close([g.numpy() for g in tg], [jg[0], *jg[1], *jg[2]])
 
@@ -209,7 +288,7 @@ def test_b2_wrapper_refuses_inputs_that_need_a_gradient():
 
 
 def test_scan_train_on_cpu_keeps_the_dtype():
-    xp = torch.zeros(4, 1, 2, 32, dtype=torch.float64)
+    xp = torch.zeros(2, 4, 32, dtype=torch.float64)
     ys, c_t = bilstm_scan_train(xp, torch.zeros(1, 8, 32,
                                                 dtype=torch.float64))
     assert ys.dtype == c_t.dtype == torch.float64
