@@ -71,6 +71,12 @@ Then training, every LSTM recurrence on the port's training kernels
     same step with every block checkpointed, and both training kernels
     at the four shapes beside their plain versions and cuDNN's
     `nn.LSTM` forward + backward.
+Then this slice's phases (`corpus_phases`): the reference configs
+(configs/tsh.json, configs/embed.json) through the trainer CLI on a
+LibriSpeech-format corpus generated in a temporary directory, the
+render rate of their dataset, `SeparationTask` (the offline separator
+with 2-source PIT) on the card against the CPU and through the CLI, and
+the loss registry on the card.
 Inference phases run under `torch.no_grad()`, the training phases with
 gradients. Then the loaders' fork server and resource tracker are
 stopped and reaped, and no child process of this script may be left.
@@ -170,10 +176,43 @@ TRAIN_TAIL = (97, 2, 1037)
 # cancellation and lie up to 1.8e-3 of their peak from float64 there
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
+# SEP_GRAD_NOTE. The offline separator's gradient (6 blocks, seeded random
+# init, 2 x 1 s of the corpus' first two validation items) is not
+# defined to TOL_TRAIN_GRAD at float32's resolution: float64 on the input
+# times (1 + SEP_PERTURB N(0, 1)), ~8 of float32's units in the last
+# place, moves 48 of the 540 tensors by more than TOL_TRAIN_GRAD of
+# max(peak, floor), up to 3.2e-2 (attention PReLU slopes, biases, norms
+# and projections of blocks 0-3), and the CPU's float32 run misses 47,
+# up to 3.0e-2. Which tensors, and how far, a float32 run lands depends
+# on its rounding: in four runs of this phase on one card the card's
+# float32 lay either near float64 (7 tensors beyond TOL_TRAIN_GRAD, at
+# most 1.8e-3) or near the CPU's float32 (up to 3.0e-2). So the check
+# names no tensor: every gradient must lie within SEP_GRAD_CAP of
+# float64, and at most SEP_MAX_UNRESOLVED beyond TOL_TRAIN_GRAD; the
+# log gives both float32 witnesses beside the card. A wiring fault
+# (a layout, a direction, a missing term) moves most tensors by O(1);
+# the kernels themselves are held to their plain versions at these
+# shapes in "bilstm_scan training kernels vs plain"
+SEP_GRAD_CAP = 0.1
+SEP_MAX_UNRESOLVED = 64
+SEP_PERTURB = 1e-6
 TRAIN_CHECK_SECONDS = 1.0
 TRAIN_CHECK_BATCH = 2
 TRAIN_FRAC = 0.005            # 3 of the 640 training batches, 1 val batch
 TRAIN_STEPS = 10              # steps on one fixed batch, seeded init
+# the reference configs' path: a LibriSpeech-format corpus of 8 speakers
+# x 3 utterances of 6 s per split, and scene specs for 3 training batches
+# of 8 and 1 validation batch of 10 (the configs' batch sizes)
+CORPUS_SPEAKERS = 8
+CORPUS_UTTS = 3
+CORPUS_SECONDS = 6.0
+CORPUS_SCENES = {"train-clean-360": 24, "dev-clean": 10, "test-clean": 10}
+# the loader's render rate: RATE_ROUNDS batches per worker, the rate
+# taken from the end of the second round to the end of the last
+RATE_ROUNDS = 7
+# every LossFn name on the card vs the CPU, float32 (TF32 off): of
+# max(1, |CPU value|); CDPAM relative
+TOL_LOSSES = 1e-4
 # the eval phases: the first 64 scenes of the 5k test split, rendered by
 # 8 workers, as the eval CLI does by default
 TSH_5K = os.path.join(ROOT, "configs", "tsh_synthetic_5k.json")
@@ -329,6 +368,382 @@ def child_pids() -> list:
         if int(stat.rsplit(")", 1)[1].split()[1]) == me:
             out.append(int(d))
     return out
+
+
+def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
+                  launch_counts, step_ms):
+    """The reference configs' training path on a LibriSpeech-format
+    corpus made here (the corpora are not in the repository):
+      * "data: LibriSpeech-format corpus": `data/prep/synth_corpus.py`
+        writes, in a temporary directory laid out as configs/tsh.json
+        expects, CORPUS_SPEAKERS speakers x CORPUS_UTTS utterances of
+        CORPUS_SECONDS s per split, WHAM!-style noise, d-vectors and every
+        CATT room's BRIRs (wav: nothing needs h5py or soundfile); the
+        port's generate_jams CLI, run from that directory, writes each
+        split's scene specs (one process a split, all at once);
+      * "path: trainer CLI, reference configs": configs/tsh.json and
+        configs/embed.json with only the data directories re-pointed and
+        hrtf_type CATTRIR (MultiCh reads SOFA, which needs h5py), one
+        epoch of 3 training batches of 8 x 5 s and 1 validation batch,
+        with the configs' workers; metrics finite, checkpoints that load
+        strictly with the committed checkpoints' keys and shapes, the
+        pl_logger's tables, and the launches 3 steps and 1 validation
+        batch imply;
+      * "data: render rate": scenes a second rendered by one process and
+        through the configured loader, beside what a training step
+        consumes;
+      * "path: SeparationTask": one loss-and-backward of the offline
+        separator (defaults, 2 channels) on 2 x 1 s separation items on
+        the card against the CPU's float32 loss and float64 gradients,
+        then 3 training steps at 8 x 5 s from SpeechSeparationDataset
+        through the trainer CLI;
+      * "losses on the card": every LossFn name but cdpam, and CDPAM from
+        a seeded .npz, on the card against the CPU."""
+    from lookoncetohear_tpu_torch import trainer as cli
+    from lookoncetohear_tpu_torch import utils as port_utils
+    from lookoncetohear_tpu_torch.data.loader import batches, collate
+    from lookoncetohear_tpu_torch.data.prep.synth_corpus import (SPLITS,
+                                                                write_corpus)
+    from lookoncetohear_tpu_torch.losses import CDPAM, LossFn
+    from lookoncetohear_tpu_torch.models.net import EmbedNet, Net
+    from lookoncetohear_tpu_torch.train.trainer import (Trainer, build_task,
+                                                        to_device)
+    from lookoncetohear_tpu_torch.weights import load_checkpoint, load_npz
+    tmp = tempfile.TemporaryDirectory(prefix="port_corpus_")
+    root = tmp.name
+    dev = torch.device("cuda")
+
+    def corpus():
+        c = write_corpus(root, CORPUS_SPEAKERS, CORPUS_UTTS, CORPUS_SECONDS)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m",
+             "lookoncetohear_tpu_torch.data.prep.generate_jams", "--only",
+             split, "--num", str(CORPUS_SCENES[split])], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for split in SPLITS]
+        for split, pr in zip(SPLITS, procs):
+            out = pr.communicate(timeout=25)[0]
+            n = len(os.listdir(c[split]["jams"])) \
+                if os.path.isdir(c[split]["jams"]) else 0
+            if pr.returncode or n != CORPUS_SCENES[split]:
+                raise AssertionError(f"generate_jams {split}: rc "
+                                     f"{pr.returncode}, {n} scenes: {out}")
+        n_files = sum(len(f) for _, _, f in os.walk(root))
+        log(f"  {root}: {len(SPLITS)} splits x {CORPUS_SPEAKERS} speakers x "
+            f"{CORPUS_UTTS} utterances of {CORPUS_SECONDS:g} s, noise, "
+            f"d-vectors, {len(os.listdir(c['catt']))} CATT rooms; scene "
+            f"specs {CORPUS_SCENES}; {n_files} files")
+        return c
+    c = phase("data: LibriSpeech-format corpus", 30, corpus)
+
+    def ref_config(which):
+        """configs/{which}.json with the data directories under the
+        corpus and the CATT BRIRs, written beside it; (path, Params)."""
+        with open(os.path.join(ROOT, "configs", f"{which}.json")) as f:
+            cfg = json.load(f)
+        for dset in ("train", "val", "test"):
+            a = cfg[f"{dset}_data_args"]
+            for k in ("fg_dir", "bg_dir", "jams_dir", "embed_dir"):
+                a[k] = os.path.join(root, a[k])
+            a.update(hrtf_type="CATTRIR", hrtf_list=c["catt"])
+        path = os.path.join(root, f"{which}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return path, port_utils.Params(path)
+
+    def run_cli(name, cfg, hp, want, run_dir):
+        """The trainer CLI for one epoch: returns the launch counts read
+        after it; fails unless the kernels launched `want`, the metrics
+        are finite and the checkpoints are there."""
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.run(["--config", cfg, "--run_dir", run_dir, "--epochs", "1"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts(counts, want, f"{name} trainer CLI")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        nums = [v for r in recs for v in r.values() if isinstance(v, float)]
+        if not (len(recs) == 1 and recs[0]["step"] == 3
+                and np.isfinite(nums).all()):
+            raise AssertionError(f"{name}: metrics {recs}")
+        for fn in ("last.ckpt", "best.ckpt", "ckpt_meta.json"):
+            if not os.path.exists(os.path.join(run_dir, fn)):
+                raise AssertionError(f"{name}: no {fn}")
+        workers = min(hp.num_workers, os.cpu_count())
+        log(f"  {name}: {secs:.1f} s for 3 training batches of "
+            f"{hp.batch_size} x 5 s + 1 validation batch of "
+            f"{hp.eval_batch_size}, rendered by {workers} "
+            f"workers, checkpoints included; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{smi}]; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in recs[0].items()
+                        if "/" in k)
+            + "; launches: " + ", ".join(f"{k} {counts[k]}" for k in want))
+        return counts
+
+    def reference_cli():
+        train = {"bilstm_scan_fwd_train": 18, "bilstm_scan_bwd": 18}
+        for name, which, ckpt, model_cls, val in (
+                # validation keeps no graph: B2 for every BiLSTM, the
+                # training forward for the separator's inter-time LSTM;
+                # EmbedTask's table logger runs the net a second time
+                ("TSETask", "tsh", CKPT, Net,
+                 {"bilstm_scan": 3, "bilstm_scan_fwd_train": 3}),
+                ("EmbedTask", "embed", EMBED_CKPT, EmbedNet,
+                 {"bilstm_scan": 12})):
+            cfg, hp = ref_config(which)
+            want = dict(train)
+            for k, v in val.items():
+                want[k] = want.get(k, 0) + v
+            run_dir = os.path.join(root, f"run_{which}")
+            counts = run_cli(name, cfg, hp, want, run_dir)
+            if name == "TSETask":
+                # this slice's main path: the kernels line reports its
+                # launches of the training kernels
+                for k in train:
+                    launch_counts[k] = counts[k]
+            best = os.path.join(run_dir, "best.ckpt")
+            got, ref = load_npz(best), load_npz(ckpt)
+            if {k: v.shape for k, v in got.items()} != \
+                    {k: v.shape for k, v in ref.items()}:
+                raise AssertionError(f"{name}: best.ckpt keys/shapes "
+                                     f"differ from {ckpt}")
+            mp = hp.pl_module_args["model_params"]
+            load_checkpoint(model_cls(**mp, device="cpu"), best)
+            tables = sorted(os.listdir(os.path.join(run_dir, "embeddings")))
+            want_tables = ["val_epoch0.csv"] + (
+                ["val_gt_epoch0.csv"] if name == "EmbedTask" else [])
+            if tables != want_tables:
+                raise AssertionError(f"{name}: tables {tables}")
+            rows = []
+            for t in tables:
+                with open(os.path.join(run_dir, "embeddings", t)) as f:
+                    lines = f.read().splitlines()
+                rows.append(len(lines) - 1)
+                if rows[-1] != hp.eval_batch_size or \
+                        len(lines[1].split(",")) != 257:
+                    raise AssertionError(f"{name}: {t} has {rows[-1]} rows")
+            log(f"    best.ckpt: {len(got)} tensors, keys and shapes of "
+                f"{ckpt.split('/')[-1]}, loads strictly; pl_logger: "
+                + ", ".join(f"{t} ({r} rows)" for t, r in zip(tables, rows)))
+    phase("path: trainer CLI, reference configs", 180, reference_cli,
+          grad=True)
+
+    def render_rate():
+        """Items a second: one process over the training split once; then
+        RATE_ROUNDS batches per worker of the configs' size through the
+        configured number of loader workers (the split's indices over
+        again: a training item draws anew each time). The workers start
+        together and take their batches in turn, so the first round ends
+        after their start; the loader's rate is taken from the end of the
+        second round to the end of the last, when every worker has been
+        rendering throughout."""
+        _, hp = ref_config("tsh")
+        ds = port_utils.import_attr(hp.train_dataset)(**hp.train_data_args)
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        one = len(ds) / (time.perf_counter() - t0)
+        workers = min(hp.num_workers, os.cpu_count())
+        bs = hp.batch_size
+        n_batches = RATE_ROUNDS * workers
+        order = [[(k * bs + j) % len(ds) for j in range(bs)]
+                 for k in range(n_batches)]
+        t0 = time.perf_counter()
+        arrived = []
+        for _ in batches(ds, num_workers=workers, batch_sampler=order):
+            arrived.append(time.perf_counter())
+        if len(arrived) != n_batches:
+            raise AssertionError(f"loader: {len(arrived)} of {n_batches} "
+                                 "batches")
+        t_a, t_b = arrived[2 * workers - 1], arrived[-1]
+        rate = (n_batches - 2 * workers) * bs / (t_b - t_a)
+        used = {k: bs / (v / 1e3) for k, v in step_ms.items()}
+        log(f"  MixLibriSpeechNoisyEnroll train items (two 5 s scenes "
+            f"each, CATT BRIRs of RT60 + 50 ms): {one:.1f} / s in one "
+            f"process over {len(ds)}; through the loader's {workers} "
+            f"workers the first batch of {bs} in {arrived[0] - t0:.1f} s "
+            f"(the workers' start), then {rate:.1f} / s over rounds 3-"
+            f"{RATE_ROUNDS} ({n_batches - 2 * workers} batches in "
+            f"{t_b - t_a:.1f} s; {n_batches * bs / (t_b - arrived[0]):.1f}"
+            f" / s counted from the first batch); a training step at {bs} "
+            "items consumes "
+            + ", ".join(f"{v:.1f} / s ({k})" for k, v in used.items())
+            + f" [{smi}]")
+    phase("data: render rate", 30, render_rate)
+
+    def separation():
+        cfg, hp = ref_config("tsh")
+        sep = {"pl_module": "lookoncetohear_tpu.train.tasks.SeparationTask",
+               "pl_module_args": {
+                   "model": "src.models.tfgridnet_orig.tfgridnet.Net",
+                   "model_params": {"num_ch": 2}, "lr": 5e-4,
+                   "scheduler": hp.pl_module_args["scheduler"],
+                   "scheduler_params": hp.pl_module_args["scheduler_params"]},
+               "epochs": 1, "batch_size": hp.batch_size,
+               "eval_batch_size": hp.eval_batch_size,
+               "num_workers": hp.num_workers}
+        for dset in ("train", "val", "test"):
+            sep[f"{dset}_dataset"] = \
+                "src.datasets.SpeechSeparationDataset.SpeechSeparationDataset"
+            sep[f"{dset}_data_args"] = getattr(hp, f"{dset}_data_args")
+        sep_cfg = os.path.join(root, "separation.json")
+        with open(sep_cfg, "w") as f:
+            json.dump(sep, f)
+        shp = port_utils.Params(sep_cfg)
+        per_step = {"bilstm_scan_fwd_train": 12, "bilstm_scan_bwd": 12}
+        # one step on the card against the CPU, as "path: train step GPU
+        # vs CPU" holds the other tasks
+        ds = port_utils.import_attr(shp.val_dataset)(**shp.val_data_args)
+        host = collate([ds[i] for i in range(TRAIN_CHECK_BATCH)])
+        n = int(TRAIN_CHECK_SECONDS * 16000)
+        host = ({"mixture": host[0]["mixture"][..., :n]},
+                {k: host[1][k][..., :n] for k in ("target1", "target2")})
+        out = {}
+        for d, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                      ("cpu64", torch.float64),
+                      ("perturbed", torch.float64)):
+            task = build_task(shp)
+            dev_ = d if d == "cuda" else "cpu"
+            model = task.model.to(dev_, dt)
+            batch = {k: v.to(dt) for k, v in to_device(
+                task.device_batch(host, train=True), dev_).items()}
+            if d == "perturbed":
+                # SEP_GRAD_NOTE's witness: float64 on a nearby input
+                gen = torch.Generator().manual_seed(0)
+                noise = torch.randn(batch["mixture"].shape, dtype=dt,
+                                    generator=gen)
+                batch["mixture"] = batch["mixture"] * (1 + SEP_PERTURB
+                                                       * noise)
+            reset_counts()
+            with port_utils.full_float32():
+                loss, _ = task.loss_and_metrics(batch, 0)
+                loss.backward()
+            if d == "cuda":
+                torch.cuda.synchronize()
+                counts = read_counts()
+            out[d] = (loss.item(), {k: p.grad.cpu().double() for k, p in
+                                    model.named_parameters()})
+        expect_counts(counts, per_step, "SeparationTask step")
+        (l_gpu, g_gpu), (l_cpu, g_cpu), (l_64, g_64) = \
+            out["cuda"], out["cpu"], out["cpu64"]
+        if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= TOL_TRAIN_LOSS
+                * max(1.0, abs(l_cpu))):
+            raise AssertionError(f"SeparationTask: loss {l_gpu} vs {l_cpu}")
+        floor = 1e-3 * max(g.abs().max().item() for g in g_64.values())
+
+        def spread(grads):
+            """Per tensor, |grads - float64| / max(peak, floor)."""
+            return {k: (grads[k] - g).abs().max().item()
+                    / max(g.abs().max().item(), floor)
+                    for k, g in g_64.items()}
+        gpu, cpu, moved = spread(g_gpu), spread(g_cpu), \
+            spread(out["perturbed"][1])
+
+        def beyond(d):
+            return (sum(v > TOL_TRAIN_GRAD for v in d.values()),
+                    max(d.values()))
+        bad = [k for k, g in g_gpu.items() if not torch.isfinite(g).all()]
+        n_gpu, max_gpu = beyond(gpu)
+        if bad or max_gpu > SEP_GRAD_CAP or n_gpu > SEP_MAX_UNRESOLVED:
+            raise AssertionError(
+                f"SeparationTask: {n_gpu} gradients beyond {TOL_TRAIN_GRAD} "
+                f"of max(peak, floor) from float64 (at most "
+                f"{SEP_MAX_UNRESOLVED}), at most {max_gpu:.3e} (limit "
+                f"{SEP_GRAD_CAP}); not finite: {bad}; worst: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in sorted(
+                    gpu.items(), key=lambda kv: -kv[1])[:8]))
+        worst = sorted(gpu, key=gpu.get, reverse=True)[:3]
+        (n_cpu, max_cpu), (n_moved, max_moved) = beyond(cpu), beyond(moved)
+        log(f"  SeparationTask, OfflineSeparatorNet(num_ch=2), "
+            f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SECONDS:g} s: loss GPU "
+            f"{l_gpu:.6f} CPU {l_cpu:.6f} float64 {l_64:.6f}; of "
+            f"{len(g_64)} gradients, beyond {TOL_TRAIN_GRAD} of max(peak, "
+            f"floor) from float64 (count, largest): the card {n_gpu}, "
+            f"{max_gpu:.3e} (at most {SEP_MAX_UNRESOLVED}, {SEP_GRAD_CAP}); "
+            f"the CPU's float32 {n_cpu}, {max_cpu:.3e}; float64 on the "
+            f"input times (1 + {SEP_PERTURB:g} N(0, 1)) {n_moved}, "
+            f"{max_moved:.3e}; the card's worst: "
+            + ", ".join(f"{k} {gpu[k]:.3e} (CPU float32 {cpu[k]:.3e})"
+                        for k in worst)
+            + "; launches: " + ", ".join(f"{k} {counts[k]}"
+                                         for k in per_step))
+        # 3 steps at 8 x 5 s through the CLI; validation keeps no graph
+        want = {k: 3 * v for k, v in per_step.items()}
+        want["bilstm_scan"] = 12
+        run_cli("SeparationTask", sep_cfg, shp, want,
+                os.path.join(root, "run_separation"))
+        # the step's own time: 3 steps on one batch of 8 x 5 s, the first
+        # apart (a seeded model, as the CLI builds it)
+        task = build_task(shp)
+        train = port_utils.import_attr(shp.train_dataset)(
+            **shp.train_data_args)
+        host = collate([train[i] for i in range(shp.batch_size)])
+        with tempfile.TemporaryDirectory(prefix="port_sep_") as tmp_run, \
+                port_utils.full_float32():
+            tr = Trainer(task, tmp_run, epochs=1, device=dev)
+            batch = to_device(task.device_batch(host, train=True), dev)
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_step(batch, 0)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        gib, total = 2 ** 30, torch.cuda.get_device_properties(0).total_memory
+        log(f"  SeparationTask step, {shp.batch_size} x 5 s: "
+            f"{np.median(ms[1:]):.1f} ms from call to synchronize (median "
+            f"of 2 after the first, {ms[0]:.1f} ms first), peak allocated "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, reserved "
+            f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB of the "
+            f"card's {total / gib:.2f} GiB [{smi}]")
+    phase("path: SeparationTask", 120, separation, grad=True)
+
+    def losses_card():
+        g = np.random.default_rng(5)
+        est, gt, noise = (g.standard_normal((2, 2, 16000)).astype(np.float32)
+                          for _ in range(3))
+        cases = [(n, (est, gt), {}) for n in ("sisdr", "snr", "sdsdr",
+                                               "snr_sdsdr", "fused", "mel",
+                                               "l1_mel")]
+        cases += [("sisdr_with_sum", (est, gt),
+                   dict(noise_estimate=noise, mixture=est + noise)),
+                  ("pit_sisdr", (None, None),
+                   dict(est1=est, est2=noise, gt1=gt, gt2=est + noise))]
+        msg = []
+        for name, args, kw in cases:
+            vals = []
+            for d in ("cuda", "cpu"):
+                t = lambda a: None if a is None else \
+                    torch.from_numpy(a).to(d)  # noqa: E731
+                v = LossFn(name)(*map(t, args),
+                                 **{k: t(a) for k, a in kw.items()})
+                vals.append((v[0] if isinstance(v, tuple) else v).item())
+            err = abs(vals[0] - vals[1])
+            if not (np.isfinite(vals[0]) and err <= TOL_LOSSES
+                    * max(1.0, abs(vals[1]))):
+                raise AssertionError(f"LossFn({name}): GPU {vals[0]} CPU "
+                                     f"{vals[1]}")
+            msg.append(f"{name} {vals[0]:.5g} ({err:.1e})")
+        path = os.path.join(root, "cdpam.npz")
+        CDPAM(seed=0).save(path)
+        fn = CDPAM(weights=path)
+        x, y = (torch.from_numpy(a.reshape(4, -1)) for a in (est, gt))
+        d_gpu = fn(x.to(dev), y.to(dev)).item()
+        d_cpu = fn(x, y).item()
+        if not abs(d_gpu - d_cpu) <= TOL_LOSSES * max(abs(d_cpu), 1e-6):
+            raise AssertionError(f"CDPAM: GPU {d_gpu} CPU {d_cpu}")
+        log(f"  2 x 2 x 1 s, GPU (|GPU - CPU|, tolerance {TOL_LOSSES} of "
+            f"max(1, |CPU|)): {', '.join(msg)}; CDPAM from a seeded .npz "
+            f"{d_gpu:.6g} (CPU {d_cpu:.6g}, tolerance {TOL_LOSSES} "
+            "relative)")
+    phase("losses on the card", 20, losses_card)
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -1430,7 +1845,7 @@ def main() -> int:
                 train_scans[key] = (xp, w_hh, h0, c0, dys, dct, y, cs)
         res["bilstm_scan_fwd_train"]["max_abs_err"] = fwd_err
         res["bilstm_scan_bwd"]["max_abs_err"] = bwd_err
-    phase("bilstm_scan training kernels vs plain", 60, train_scan_check)
+    phase("bilstm_scan training kernels vs plain", 30, train_scan_check)
 
     from lookoncetohear_tpu_torch import utils as port_utils
     from lookoncetohear_tpu_torch.data.loader import collate
@@ -1507,7 +1922,7 @@ def main() -> int:
                 f"the CPU's float32 at worst {cpu_to64:.3e}; launches: "
                 + ", ".join(f"{k} {counts[k]}" for k in per_step)
                 + ", no other kernel of the port")
-    phase("path: train step GPU vs CPU", 240, train_step_check, grad=True)
+    phase("path: train step GPU vs CPU", 60, train_step_check, grad=True)
 
     def trainer_cli():
         """The port's trainer CLI on each committed training config at
@@ -1569,7 +1984,7 @@ def main() -> int:
                     + f"; best.ckpt: {len(got)} tensors, keys and shapes of "
                     f"{ckpt.split('/')[-1]}, loads strictly; launches: "
                     + ", ".join(f"{k} {v}" for k, v in want.items()))
-    phase("path: trainer CLI", 150, trainer_cli, grad=True)
+    phase("path: trainer CLI", 90, trainer_cli, grad=True)
 
     class StepOnce:
         """A training step in the shape `profile_steps` drives."""
@@ -1712,7 +2127,11 @@ def main() -> int:
                     + ("forward" if kname.endswith("train") else
                        "forward + backward")
                     + f" {l_ms * 1e3:.1f} us [{smi}]")
-    phase("times: training", 120, train_times, grad=True)
+    phase("times: training", 60, train_times, grad=True)
+
+    corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
+                  launch_counts,
+                  {name: res[f"train_{name}"]["ms"] for name, *_ in tasks})
 
     def no_children():
         """The eval loaders' fork server and resource tracker stopped

@@ -1,5 +1,6 @@
-"""Colored noise (counterpart of `lookoncetohear_tpu/data/augmentations.py`;
-only the generator the synthetic scenes use is copied).
+"""Noise augmentations (counterpart of
+`lookoncetohear_tpu/data/augmentations.py`): white, pink and brown
+noise, each at a level drawn from U[0, max_level].
 
 The 1/f^beta synthesis follows Timmer & Koenig (1995): draw independent
 complex-Gaussian spectral amplitudes with std ∝ f^(-beta/2),
@@ -50,3 +51,29 @@ def powerlaw_psd_gaussian(exponent: float, size, fmin: float = 0.0,
         sr[..., -1] = sr[..., -1] * np.sqrt(2.0)
     out = np.fft.irfft(sr + 1j * si, n=n, axis=-1) / sigma
     return out
+
+
+def generate_white_noise(shape, max_level: float,
+                         rng: np.random.Generator | None = None) -> np.ndarray:
+    if rng is None:
+        rng = np.random.default_rng()
+    level = max_level * rng.random()
+    return (level * rng.normal(size=shape)).astype(np.float32)
+
+
+def generate_pink_noise(shape, max_level: float,
+                        rng: np.random.Generator | None = None) -> np.ndarray:
+    if rng is None:
+        rng = np.random.default_rng()
+    level = max_level * rng.random()
+    return (level * powerlaw_psd_gaussian(1.0, shape, rng=rng)).astype(
+        np.float32)
+
+
+def generate_brown_noise(shape, max_level: float,
+                         rng: np.random.Generator | None = None) -> np.ndarray:
+    if rng is None:
+        rng = np.random.default_rng()
+    level = max_level * rng.random()
+    return (level * powerlaw_psd_gaussian(2.0, shape, rng=rng)).astype(
+        np.float32)

@@ -8,11 +8,11 @@ as the JAX package and the reference's `model_params` JSON:
   * `EmbedNet`, the enrollment net (noisy binaural snippet -> d-vector);
   * `OfflineSeparatorNet`, the offline 2-source separator.
 
-`Net.forward` and `EmbedNet.forward` are differentiable (the training
-tasks call them); their inference callers run them under
-`torch.no_grad()` or `torch.inference_mode()`. `Net.predict`,
-`Net.step` and `OfflineSeparatorNet.forward`, which no training path
-calls, keep no graph.
+`Net.forward`, `EmbedNet.forward` and `OfflineSeparatorNet.forward` are
+differentiable (the training tasks call them); their inference callers
+run them under `torch.no_grad()` or `torch.inference_mode()`.
+`Net.predict` and `Net.step`, which no training path calls, keep no
+graph.
 """
 
 from __future__ import annotations
@@ -172,7 +172,6 @@ class OfflineSeparatorNet(nn.Module):
                                 padding=1)
         self.to(resolve_device(device))
 
-    @torch.no_grad()
     def forward(self, x):
         """x: [B, M, N] -> [B, n_srcs, N]."""
         xn, std = std_normalize(x)

@@ -103,14 +103,25 @@ def hann_window(win_length: int, device=None) -> torch.Tensor:
     return (0.5 * (1.0 - torch.cos(2.0 * np.pi * n / win_length))).float()
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """numpy's 'reflect' pad of the last axis by `pad` on each side, also
+    where pad >= N (torch's reflect pad refuses that; numpy reflects
+    again, i.e. the signal extends with period 2(N - 1))."""
+    n = x.shape[-1]
+    if pad < n:
+        lead = x.shape[:-1]
+        return torch.nn.functional.pad(x.reshape(-1, 1, n), (pad, pad),
+                                       mode="reflect").reshape(*lead, -1)
+    period = 2 * (n - 1)
+    idx = torch.arange(-pad, n + pad, device=x.device).abs() % period
+    return x[..., torch.where(idx >= n, period - idx, idx)]
+
+
 def stft_center(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """Centered STFT: reflect pad by n_fft//2, periodic Hann, one-sided
     rfft. x: [..., N] -> complex [..., T, F], T = N//hop + 1, F =
     n_fft//2 + 1 (frames-major, like espnet's encoder output)."""
-    pad = n_fft // 2
-    lead = x.shape[:-1]
-    x = torch.nn.functional.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad),
-                                mode="reflect").reshape(*lead, -1)
+    x = reflect_pad(x, n_fft // 2)
     frames = frame_signal(x, n_fft, hop) * hann_window(n_fft, x.device)
     return torch.fft.rfft(frames, dim=-1)
 

@@ -6,16 +6,22 @@
 * `EmbedTask`: cosine embedding loss (margin) of the d-vector against
   the clean one, plus negatives against the other speakers once the
   epoch reaches `neg_loss_start_epoch`; monitor val/loss (min).
+* `SeparationTask`: 2-speaker separation by the offline separator,
+  trained with 2-source PIT SI-SDR; monitor val/loss (min).
 
 A task owns its model, built on the CPU (the trainer moves it to its
 device). `device_batch` assembles a host batch of numpy arrays;
 `loss_and_metrics(batch, epoch)` takes that batch as tensors on the
-model's device and returns (loss, {name: scalar tensor}).
+model's device and returns (loss, {name: scalar tensor}). The TSE and
+embedding tasks also give `log_embeddings` tables, which the configs'
+`pl_logger`, `EmbeddingTableLogger`, writes out each validation epoch.
 """
 
 from __future__ import annotations
 
+import csv
 import math
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -25,6 +31,7 @@ from torch import nn
 from lookoncetohear_tpu_torch import utils
 from lookoncetohear_tpu_torch.losses import (cosine_embedding_loss, si_snr,
                                              snr)
+from lookoncetohear_tpu_torch.losses.loss_fn import _pit_sisdr
 from lookoncetohear_tpu_torch.metrics.improvement import metric_improvement
 
 
@@ -156,6 +163,11 @@ class TSETask(Task):
         })
         return loss, metrics
 
+    def log_embeddings(self, batch, first_epoch: bool = False) -> dict:
+        """The validation epoch's embedding table: the conditioning
+        d-vector of each row."""
+        return {"": batch["embedding_gt"][:, 0]}
+
 
 class EmbedTask(Task):
     """Binaural-enrollment embedding task."""
@@ -205,3 +217,81 @@ class EmbedTask(Task):
                     emb, negs[:, k, 0], -ones, self.margin,
                     reduction="none"), mask)
         return loss, {"loss": loss, "pos_loss": pos}
+
+    def log_embeddings(self, batch, first_epoch: bool = False) -> dict:
+        """The predicted d-vectors each validation epoch, and the
+        ground truth's table ("gt") at the first."""
+        out = {"": self.model(batch["enrollments"][:, 0])}
+        if first_epoch:
+            out["gt"] = batch["embedding_gt"][:, 0]
+        return out
+
+
+class SeparationTask(Task):
+    """2-speaker PIT separation (`SpeechSeparationDataset`, the offline
+    separator or any x -> [B, 2, T] model): the loss is 2-source PIT
+    SI-SDR on the first channel of each target; the metric si_sdr is the
+    first reordered estimate's SI-SDR."""
+
+    def __init__(self, model: str, model_params: dict, lr: float,
+                 scheduler: str | None = None,
+                 scheduler_params: dict | None = None,
+                 init_ckpt: str | None = None) -> None:
+        self.model = _model(model, model_params)
+        self.lr = lr
+        self.init_ckpt = init_ckpt
+        self.scheduler = scheduler
+        self.scheduler_params = scheduler_params or {}
+        self.monitor = "val/loss"
+        self.monitor_mode = "min"
+
+    def device_batch(self, batch, train: bool = False):
+        inputs, targets = batch
+        return {"mixture": inputs["mixture"],
+                "target1": targets["target1"],
+                "target2": targets["target2"]}
+
+    def loss_and_metrics(self, batch, epoch: int):
+        out = self.model(batch["mixture"])               # [B, 2, T]
+        mask = batch.get("_mask")
+        per_sample, o1, _ = _pit_sisdr(
+            None, None, out[:, :1], out[:, 1:], batch["target1"][:, :1],
+            batch["target2"][:, :1], reduce=False)
+        loss = masked_mean(per_sample, mask)
+        sisdr1 = masked_mean(si_snr(o1[:, 0], batch["target1"][:, 0]), mask)
+        return loss, {"loss": loss, "si_sdr": sisdr1}
+
+
+class EmbeddingTableLogger:
+    """The configs' `pl_logger`: each validation epoch's embedding
+    tables as CSV files under run_dir/embeddings/, one row (speaker_id,
+    embed_0..embed_N) per logged sample. The table named "" goes to
+    `{split}_epoch{N}.csv`, any other name (e.g. "gt") to
+    `{split}_{name}_epoch{N}.csv`."""
+
+    def __init__(self) -> None:
+        self.samples: dict = {}
+
+    def add(self, spk_ids, embeddings, name: str = "") -> None:
+        rows = self.samples.setdefault(name, [])
+        for s, e in zip(np.asarray(spk_ids).reshape(-1),
+                        np.asarray(embeddings)):
+            rows.append((int(s), np.asarray(e)))
+
+    def flush(self, run_dir: str, epoch: int, key: str = "val") -> None:
+        d = os.path.join(run_dir, "embeddings")
+        for name, rows in self.samples.items():
+            if not rows:
+                continue
+            os.makedirs(d, exist_ok=True)
+            stem = f"{key}_epoch{epoch}" if not name else \
+                f"{key}_{name}_epoch{epoch}"
+            n = rows[0][1].shape[-1]
+            with open(os.path.join(d, f"{stem}.csv"), "w",
+                      newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["speaker_id"]
+                           + [f"embed_{i}" for i in range(n)])
+                for s, e in rows:
+                    w.writerow([s] + e.tolist())
+        self.samples.clear()

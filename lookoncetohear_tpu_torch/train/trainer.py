@@ -8,8 +8,10 @@ global norm as optax computes it, and `torch.optim.Adam` with optax's
 defaults. The plateau scheduler writes the learning rate into the
 optimizer's `param_groups` after each epoch's validation. Checkpoints
 are npz files, last + top-5 on the task's monitor
-(`train/checkpoint.py`). The JAX package's data mesh and multi-host
-paths have no counterpart here.
+(`train/checkpoint.py`). A config's `pl_logger` (the embedding-table
+logger) gets the task's `log_embeddings` tables of every 5th evaluation
+batch and writes them per split. The JAX package's data mesh and
+multi-host paths have no counterpart here.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import random
 import time
 
 import numpy as np
@@ -76,11 +79,14 @@ def to_device(batch: dict, device) -> dict:
 class Trainer:
     def __init__(self, task, run_dir: str, epochs: int = 100,
                  grad_clip: float | None = None,
-                 limit_batches: float | int = 1.0, device=None) -> None:
+                 limit_batches: float | int = 1.0, device=None,
+                 table_logger=None) -> None:
         """limit_batches: a float is the fraction of each split per
         epoch, an int an absolute number of batches (Lightning's
-        meaning: int 1 is one batch, float 1.0 the whole split)."""
+        meaning: int 1 is one batch, float 1.0 the whole split).
+        table_logger: the config's `pl_logger`, or None."""
         self.task = task
+        self.table_logger = table_logger
         self.run_dir = run_dir
         self.epochs = epochs
         self.grad_clip = grad_clip
@@ -183,11 +189,21 @@ class Trainer:
         means weighted by its number of real rows."""
         sums: dict = {}
         total = 0
-        for batch, n in self._device_batches(dl, pad_to=dl.batch_size):
+        tables = self.table_logger is not None and hasattr(
+            self.task, "log_embeddings")
+        for i, (batch, n) in enumerate(
+                self._device_batches(dl, pad_to=dl.batch_size)):
             _, metrics = self.task.loss_and_metrics(batch, epoch)
+            if tables and i % 5 == 0 and "enrollments_id" in batch:
+                ids = batch["enrollments_id"][:n, 0].cpu().numpy()
+                for name, emb in self.task.log_embeddings(
+                        batch, epoch == 0).items():
+                    self.table_logger.add(ids, emb[:n].cpu().numpy(), name)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * n
             total += n
+        if self.table_logger is not None:
+            self.table_logger.flush(self.run_dir, epoch, split)
         return {f"{split}/{k}": v / max(total, 1) for k, v in sums.items()}
 
     def fit(self, train_dl: DataLoader, val_dl: DataLoader,
@@ -268,14 +284,22 @@ def build_task(hparams, seed: int = 42):
 
 def main(args, hparams) -> None:
     """The JAX package's `train.trainer.main` control flow on one
-    device: task and trainer from the config, loaders of the config's
-    datasets, then `fit` or (`--test`) `test`. TF32 is off throughout,
-    as in the eval CLI."""
+    device: the global `random` and `np.random` seeded with 42 (the
+    training datasets draw from them when rendered in this process),
+    task, `pl_logger` and trainer from the config, loaders of the
+    config's datasets, then `fit` or (`--test`) `test`. TF32 is off
+    throughout, as in the eval CLI."""
     device = resolve_device(getattr(args, "device", None))
+    random.seed(42)
+    np.random.seed(42)
     task = build_task(hparams)
+    table_logger = None
+    if getattr(hparams, "pl_logger", None):
+        table_logger = utils.import_attr(hparams.pl_logger)()
     trainer = Trainer(task, args.run_dir, epochs=hparams.epochs,
                       grad_clip=getattr(hparams, "grad_clip", None),
-                      limit_batches=args.frac, device=device)
+                      limit_batches=args.frac, device=device,
+                      table_logger=table_logger)
     num_workers = min(getattr(hparams, "num_workers", 4), os.cpu_count())
 
     def make_dl(which, batch_size, shuffle):

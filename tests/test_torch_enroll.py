@@ -146,7 +146,8 @@ def test_small_offline_separator_matches_jax():
     jm = jnet.OfflineSeparatorNet(**cfg)
     params = _jax_init(jm, x)
     tm = _port(tnet.OfflineSeparatorNet(**cfg, device="cpu"), params)
-    got = tm(torch.from_numpy(x))
+    with torch.no_grad():  # the forward is differentiable (training)
+        got = tm(torch.from_numpy(x))
     assert got.shape == (2, 2, 300)
     _close(got, _jax_apply(jm, params, x), 1e-4)
 

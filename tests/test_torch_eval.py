@@ -252,8 +252,9 @@ def test_import_attr_maps_the_configs_paths():
         "lookoncetohear_tpu_torch.models.net.EmbedNet") is EmbedNet
     assert tutils.import_attr(
         "lookoncetohear_tpu.data.synthetic.SyntheticTSEDataset") is TDataset
-    for path in ("lookoncetohear_tpu.train.tasks.SeparationTask",
-                 "lookoncetohear_tpu.data.datasets.MixLibriSpeechNoisyEnroll",
+    for path in ("lookoncetohear_tpu.data.dataset_variants."
+                 "MixLibriSpeechMotion",
+                 "lookoncetohear_tpu.data.prep.prerender",
                  "os.system"):
         with pytest.raises(ValueError, match=path.replace(".", r"\.")):
             tutils.import_attr(path)

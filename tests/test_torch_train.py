@@ -306,7 +306,9 @@ def _pair(cfg, host):
     """The JAX task with its PRNGKey(0) params, and the port's task
     with the same params."""
     jtask = jutils.import_attr(cfg["pl_module"])(**cfg["pl_module_args"])
-    params = jtask.init_params(jax.random.PRNGKey(0), host)
+    # one compiled init (eager, flax runs the model op by op)
+    params = jax.jit(lambda key: jtask.init_params(key, host))(
+        jax.random.PRNGKey(0))
     ttask = tutils.import_attr(cfg["pl_module"])(**cfg["pl_module_args"])
     ttask.model.load_state_dict(params_from_jax(flatten_params(params)),
                                 strict=True)
@@ -319,11 +321,12 @@ def _f64(tree):
         if np.asarray(a).dtype.kind == "f" else np.asarray(a), tree)
 
 
-def _hold_task(cfg, epochs=(0,), check_batch=None):
-    """The port's task against the JAX task on one batch: the same
-    device batch, the loss and metrics in float32, every gradient in
-    float64 (see the head of this file)."""
-    host = _host_batch()
+def _hold_task(cfg, epochs=(0,), check_batch=None, host=None):
+    """The port's task against the JAX task on one batch (`host`, by
+    default a synthetic one): the same device batch, the loss and
+    metrics in float32, every gradient in float64 (see the head of this
+    file)."""
+    host = _host_batch() if host is None else host
     jtask, params, ttask = _pair(cfg, host)
     jb = jtask.device_batch(host, train=True)
     tb = ttask.device_batch(host, train=True)
@@ -562,8 +565,9 @@ def test_import_attr_resolves_the_training_paths():
     assert tutils.import_attr(
         "lookoncetohear_tpu.train.schedule.ReduceLROnPlateau") \
         is schedule.ReduceLROnPlateau
-    with pytest.raises(ValueError, match="SeparationTask"):
-        tutils.import_attr("lookoncetohear_tpu.train.tasks.SeparationTask")
+    with pytest.raises(ValueError, match="MixLibriSpeechMotion"):
+        tutils.import_attr(
+            "lookoncetohear_tpu.data.dataset_variants.MixLibriSpeechMotion")
 
 
 def test_inference_paths_build_no_graph(tmp_path, monkeypatch):
