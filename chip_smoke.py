@@ -71,12 +71,27 @@ Then training, every LSTM recurrence on the port's training kernels
     same step with every block checkpointed, and both training kernels
     at the four shapes beside their plain versions and cuDNN's
     `nn.LSTM` forward + backward.
-Then this slice's phases (`corpus_phases`): the reference configs
-(configs/tsh.json, configs/embed.json) through the trainer CLI on a
-LibriSpeech-format corpus generated in a temporary directory, the
-render rate of their dataset, `SeparationTask` (the offline separator
-with 2-source PIT) on the card against the CPU and through the CLI, and
-the loss registry on the card.
+Then `corpus_phases`: the reference configs (configs/tsh.json,
+configs/embed.json) through the trainer CLI on a LibriSpeech-format
+corpus generated in a temporary directory, the render rate of their
+dataset, the same TSE epoch with `--prerender` (rendering the cache,
+then reading it; a cached validation batch equal to a fresh render; the
+cache's read rate through the loader), moving sources (the native
+renderer's known-delay case, a batch of `CIPIC_MOTION` items over an IR
+set made here, `MixLibriSpeechMotion` over SOFA files where h5py
+imports, TSE training steps on the batch), `SeparationTask` (the offline
+separator with 2-source PIT) on the card against the CPU and through the
+CLI, and the loss registry on the card.
+The rest of the JAX package, each through its entry point: the motion
+renderer's build (after the kernels'); `MultiDeviceEngine`, two graph
+engines of 32 streams on the one card against one of 64, and
+`profiling` (a latency histogram, CUDA-event step time, a FLOP count, a
+trace), after the graph phases; the trainer CLI in an NCCL process group
+of one against the plain run, and DDP's steps against the unwrapped
+model's, after "path: trainer CLI"; and,
+after `corpus_phases`, `convert` (random reference state_dicts into
+`Net` / `EmbedNet`, the card against the CPU) and `stream_demo` with the
+committed checkpoints.
 Inference phases run under `torch.no_grad()`, the training phases with
 gradients. Then the loaders' fork server and resource tracker are
 stopped and reaped, and no child process of this script may be left.
@@ -99,6 +114,7 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -222,6 +238,45 @@ EVAL_WORKERS = 8
 # bf16 + int8 serving against float32, SI-SNRi over the 64 streams: the
 # limit the serving precision is held to (PERF.md)
 KV_COST_DB = 0.3
+# two graph engines on the one card, 32 streams each, against one
+# 64-stream graph engine: the float32 ring of the output's peak
+# (TOL_PATH: the same kernels on half the rows); with an int8 ring one
+# step from the same state of the peak (TOL_PATH at float32 compute,
+# TOL_SPLIT_BF16 at bf16). A GEMM over 32 rows rounds apart from one over
+# 64, and the int8 ring and the carried state compound it: free-running
+# over 53 steps the split reached 1.413e-3 of the peak (RMS 4.083e-4 of
+# the output's) at float32 + int8 and 7.060e-2 (RMS 8.593e-2) at bf16 +
+# int8, the same in six runs on an H100 80GB HBM3 at 700 W. Free-running,
+# the split is held to TOL_SPLIT_FREE: (max of the peak, RMS of the
+# output's), set from those readings, so a fault in how a split engine
+# carries its state shows, which one step from a shared state cannot see
+TOL_SPLIT_BF16 = 5e-2
+TOL_SPLIT_FREE = {"float32 + int8 K/V": (3e-3, 1e-3),
+                  "bf16 + int8 K/V": (1e-1, 1.2e-1)}
+PROFILE_STEPS = 100           # LatencyRecorder over graph-engine steps
+# the converter: a random reference state_dict through the port's model on
+# the card against the CPU, float32 (TF32 off), of the output's peak
+TOL_CONVERT = 1e-4
+CONVERT_SECONDS = 1.0
+# moving sources: an IR set made here (MOTION_DIRS directions in the
+# horizontal plane and two elevations, MOTION_IR taps), a batch of the
+# configs' 8 training items rendered through it, and MOTION_STEPS TSE
+# training steps of configs/tsh.json's model on them
+MOTION_DIRS = 24
+MOTION_IR = 64
+MOTION_STEPS = 3
+# an NCCL group of one against the plain trainer CLI run, of max(1, |v|):
+# the training metrics (the same 3 steps on the same batches); the
+# validation metrics of the model after them, whose SI-SNR at ~-40 dB
+# moves by 1.1e-5 between two runs of one unchanged CLI epoch (the
+# `--prerender` runs' val/si_snr_i, an H100 80GB HBM3 at 700 W)
+TOL_DDP = 1e-5
+TOL_DDP_VAL = 1e-4
+DDP_STEPS = 6                 # DDP against the unwrapped model, one batch
+# DDP's reduced gradients against the unwrapped model's, of max(peak,
+# floor) per tensor: a sum over one rank is exact, so only the card's own
+# spread between two backward passes (atomics) is left
+TOL_DDP_GRAD = 1e-4
 # counter name -> the kernel's name in a profiler trace
 TRACE_NAMES = {
     "bilstm_scan": "bilstm_scan_kernel<64, false>",
@@ -356,6 +411,46 @@ def attn_bound(b, w1, dk, dv, q_bytes, kv_bytes, scaled):
             "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6)
 
 
+def drop_from_page_cache(paths) -> float:
+    """Write each file back and drop its pages from the page cache
+    (posix_fadvise DONTNEED), so the next read goes to storage; returns
+    the share of the files' pages still resident after (mincore): 0
+    where the drop took, up to 1 on a file system that lives in memory
+    (tmpfs), where no read can reach storage."""
+    import ctypes
+    import mmap
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_void_p]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    resident = total = 0
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            size = os.fstat(fd).st_size
+            pages = -(-size // mmap.PAGESIZE)
+            addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED,
+                             fd, 0)
+            if addr is None or addr == ctypes.c_void_p(-1).value:
+                raise OSError(ctypes.get_errno(), f"mmap {path}")
+            try:
+                vec = (ctypes.c_ubyte * pages)()
+                if libc.mincore(ctypes.c_void_p(addr), size, vec) != 0:
+                    raise OSError(ctypes.get_errno(), f"mincore {path}")
+                resident += sum(b & 1 for b in vec)
+            finally:
+                libc.munmap(ctypes.c_void_p(addr), size)
+        finally:
+            os.close(fd)
+        total += pages
+    return resident / total
+
+
 def child_pids() -> list:
     """The processes whose parent is this one (Linux /proc)."""
     me, out = os.getpid(), []
@@ -436,7 +531,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             f"d-vectors, {len(os.listdir(c['catt']))} CATT rooms; scene "
             f"specs {CORPUS_SCENES}; {n_files} files")
         return c
-    c = phase("data: LibriSpeech-format corpus", 30, corpus)
+    c = phase("data: LibriSpeech-format corpus", 15, corpus)
 
     def ref_config(which):
         """configs/{which}.json with the data directories under the
@@ -453,16 +548,20 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             json.dump(cfg, f)
         return path, port_utils.Params(path)
 
-    def run_cli(name, cfg, hp, want, run_dir):
+    cli_secs: dict = {}
+
+    def run_cli(name, cfg, hp, want, run_dir, extra=()):
         """The trainer CLI for one epoch: returns the launch counts read
-        after it; fails unless the kernels launched `want`, the metrics
-        are finite and the checkpoints are there."""
+        after it (its seconds into cli_secs[name]); fails unless the
+        kernels launched `want`, the metrics are finite and the
+        checkpoints are there."""
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cli.run(["--config", cfg, "--run_dir", run_dir, "--epochs", "1"])
+        cli.run(["--config", cfg, "--run_dir", run_dir, "--epochs", "1",
+                 *extra])
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        secs = cli_secs[name] = time.perf_counter() - t0
         counts = read_counts()
         expect_counts(counts, want, f"{name} trainer CLI")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
@@ -530,7 +629,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             log(f"    best.ckpt: {len(got)} tensors, keys and shapes of "
                 f"{ckpt.split('/')[-1]}, loads strictly; pl_logger: "
                 + ", ".join(f"{t} ({r} rows)" for t, r in zip(tables, rows)))
-    phase("path: trainer CLI, reference configs", 180, reference_cli,
+    phase("path: trainer CLI, reference configs", 85, reference_cli,
           grad=True)
 
     def render_rate():
@@ -574,7 +673,263 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             "items consumes "
             + ", ".join(f"{v:.1f} / s ({k})" for k, v in used.items())
             + f" [{smi}]")
-    phase("data: render rate", 30, render_rate)
+    phase("data: render rate", 55, render_rate)
+
+    def loader_rate(ds, bs, workers):
+        """Items a second through `batches` with `workers` workers,
+        RATE_ROUNDS batches of `bs` a worker (the split's indices over
+        again), taken from the end of the second round to the end of the
+        last; and the first batch's wait."""
+        n_batches = RATE_ROUNDS * workers
+        order = [[(k * bs + j) % len(ds) for j in range(bs)]
+                 for k in range(n_batches)]
+        t0 = time.perf_counter()
+        arrived = []
+        for _ in batches(ds, num_workers=workers, batch_sampler=order):
+            arrived.append(time.perf_counter())
+        if len(arrived) != n_batches:
+            raise AssertionError(f"loader: {len(arrived)} of {n_batches} "
+                                 "batches")
+        t_a, t_b = arrived[2 * workers - 1], arrived[-1]
+        return (n_batches - 2 * workers) * bs / (t_b - t_a), arrived[0] - t0
+
+    def prerender_cli():
+        """configs/tsh.json through the trainer CLI with `--prerender`
+        (as "path: trainer CLI, reference configs", one epoch of 3
+        training batches and 1 validation batch): the first run renders
+        the train and val splits into the cache with the configs'
+        workers, a second run in a fresh run dir reads them; each
+        launches what the uncached run did. A cached validation batch
+        equals a fresh render of the same indices, bit for bit (the
+        validation items depend on their index alone; training items draw
+        from the global random streams, so the cache freezes one render
+        of each). Then the cache's read rate through the configs'
+        loader workers."""
+        import logging
+
+        from lookoncetohear_tpu_torch.data.prep.prerender import (
+            DEVICE_KEYS_IN, DEVICE_KEYS_TGT, PrerenderedDataset)
+        cfg, hp = ref_config("tsh")
+        want = {"bilstm_scan_fwd_train": 21, "bilstm_scan_bwd": 18,
+                "bilstm_scan": 3}
+        cache = os.path.join(root, "prerendered")
+        renders = []
+
+        class Renders(logging.Handler):
+            def emit(self, record):
+                if record.getMessage().startswith("prerender "):
+                    renders.append(record.getMessage())
+        # the CLI logs each split's render time at INFO: only here
+        saved = logging.root.handlers[:], logging.root.level
+        logging.root.handlers[:] = [Renders()]
+        logging.root.setLevel(logging.INFO)
+        try:
+            run_cli("TSETask, --prerender (renders)", cfg, hp, want,
+                    os.path.join(root, "run_cached1"),
+                    ["--prerender", cache])
+            rendered = list(renders)
+            run_cli("TSETask, --prerender (reads)", cfg, hp, want,
+                    os.path.join(root, "run_cached2"),
+                    ["--prerender", cache])
+        finally:
+            logging.root.handlers[:], level = saved
+            logging.root.setLevel(level)
+        if len(rendered) != 2 or len(renders) != 4:
+            raise AssertionError(f"renders: {renders}")
+        n = {sp: len(os.listdir(os.path.join(cache, sp)))
+             for sp in ("train", "val")}
+        if n != {"train": CORPUS_SCENES["train-clean-360"],
+                 "val": CORPUS_SCENES["dev-clean"]}:
+            raise AssertionError(f"cache holds {n}")
+        # a cached validation batch == a fresh render
+        val = port_utils.import_attr(hp.val_dataset)(**hp.val_data_args)
+        cached = PrerenderedDataset(os.path.join(cache, "val"))
+        task = build_task(hp)
+        idx = range(hp.eval_batch_size)
+        fresh = [val[i] for i in idx]
+        for i in idx:
+            inp, tgt = cached[i]
+            for keys, got, ref in ((DEVICE_KEYS_IN, inp, fresh[i][0]),
+                                   (DEVICE_KEYS_TGT, tgt, fresh[i][1])):
+                for k in keys:
+                    if k in ref and not np.array_equal(got[k],
+                                                       np.asarray(ref[k])):
+                        raise AssertionError(f"cached val item {i}: {k}")
+        db_c = task.device_batch(collate([cached[i] for i in idx]))
+        db_f = task.device_batch(collate(fresh))
+        if sorted(db_c) != sorted(db_f) or not all(
+                np.array_equal(db_c[k], db_f[k]) for k in db_f):
+            raise AssertionError("a cached batch differs from a fresh one")
+        workers = min(hp.num_workers, os.cpu_count())
+        train = PrerenderedDataset(os.path.join(cache, "train"))
+        rate, first = loader_rate(train, hp.batch_size, workers)
+        # each shard once from storage: in one process through the
+        # dataset, then its bytes by `workers` threads at once
+        shards = [os.path.join(train.root, f) for f in train.files]
+        mb = sum(os.path.getsize(f) for f in shards) / 1e6
+        left = drop_from_page_cache(shards)
+        t0 = time.perf_counter()
+        for i in range(len(train)):
+            train[i]
+        one_s = time.perf_counter() - t0
+        left = max(left, drop_from_page_cache(shards))
+
+        def read(path):
+            with open(path, "rb") as f:
+                return len(f.read())
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(workers) as ex:
+            got = sum(ex.map(read, shards))
+        par_s = time.perf_counter() - t0
+        if got != round(mb * 1e6):
+            raise AssertionError(f"read {got} bytes of {mb * 1e6:.0f}")
+        n_sh = len(shards)
+        log(f"  render: {'; '.join(rendered)}; a cached validation batch "
+            f"of {hp.eval_batch_size} == a fresh render, bit for bit "
+            f"({len(db_f)} device-batch arrays); the train cache, {n_sh} "
+            f"shards, {mb:.1f} MB, each read once after dropping it from "
+            f"the page cache ({left:.3f} of its pages still resident): "
+            f"{n_sh / one_s:.1f} items/s, {mb / one_s:.1f} MB/s in one "
+            f"process through PrerenderedDataset; {n_sh / par_s:.1f} "
+            f"items/s, {mb / par_s:.1f} MB/s by {workers} threads (bytes "
+            f"only); through {workers} loader workers from the page cache "
+            f"(each shard read {RATE_ROUNDS * workers * hp.batch_size / n_sh:.0f} "
+            f"times): {rate:.1f} items/s over rounds 3-"
+            f"{RATE_ROUNDS}, first batch after {first:.1f} s; epoch of 3 + "
+            f"1 batches: {cli_secs['TSETask, --prerender (renders)']:.1f} s "
+            f"rendering the cache, "
+            f"{cli_secs['TSETask, --prerender (reads)']:.1f} s reading it, "
+            f"{cli_secs['TSETask']:.1f} s uncached (\"path: trainer CLI, "
+            f"reference configs\") [{smi}]")
+    phase("path: trainer CLI, --prerender", 100, prerender_cli, grad=True)
+
+    def moving_sources():
+        """The native renderer on the card's host: the known-delay case
+        of tests/test_motion.py (direction 3 of a delta IR set delays left
+        by 3 and right by 6 samples), then a batch of the configs' 8
+        training items of MixLibriSpeechNoisyEnroll with CIPIC_MOTION
+        (arcs of each source, a face-to-face enrollment) over an IR set
+        made here, handed to the simulator with set_hrtf_arrays (the
+        card's host may lack h5py); the render rate in one process; and
+        MOTION_STEPS TSE training steps of configs/tsh.json's model on
+        that batch. Where h5py imports, MixLibriSpeechMotion also runs
+        over SOFA files of the same IR set."""
+        from lookoncetohear_tpu_torch.data import motion
+        from lookoncetohear_tpu_torch.data.datasets import \
+            MixLibriSpeechNoisyEnroll
+        sr = 16000
+        delta = np.zeros((8, 2, 32), np.float32)
+        pos = np.zeros((8, 3), np.float32)
+        for m in range(8):
+            delta[m, 0, m] = delta[m, 1, 2 * m] = 1.0
+            az = -np.pi / 2 + np.pi * m / 7
+            pos[m] = [np.cos(az), np.sin(az), 0.0]
+        sim = motion.MotionSimulator(sr)
+        sim.set_hrtf_arrays(delta, pos)
+        a = np.random.default_rng(1).standard_normal(sr // 2).astype(
+            np.float32)
+        sim.add_source(a, np.tile(pos[3], (21, 1)))
+        out = sim.simulate()
+        d_err = max(np.abs(out[0, 0, 3:] - a[:-3]).max(),
+                    np.abs(out[0, 1, 6:] - a[:-6]).max())
+        if not d_err <= 1e-5:
+            raise AssertionError(f"known delay: {d_err}")
+        # the IR set: MOTION_DIRS azimuths at elevations 0 and 30 degrees,
+        # an interaural delay and level from the azimuth, a decaying tail
+        g = np.random.default_rng(2)
+        az = np.repeat(np.linspace(-180, 180, MOTION_DIRS, endpoint=False),
+                       2)
+        el = np.tile([0.0, 30.0], MOTION_DIRS)
+        irs = np.zeros((2 * MOTION_DIRS, 2, MOTION_IR), np.float32)
+        for m in range(2 * MOTION_DIRS):
+            lag = int(round(8 * np.sin(np.deg2rad(az[m]))))
+            irs[m, 0, 8 + lag] = 1.0 - 0.3 * np.sin(np.deg2rad(az[m]))
+            irs[m, 1, 8 - lag] = 1.0 + 0.3 * np.sin(np.deg2rad(az[m]))
+            irs[m, :, 17:] = 0.05 * g.standard_normal((2, MOTION_IR - 17)) \
+                * np.exp(-np.arange(MOTION_IR - 17) / 12.0)
+        cart = np.stack([np.cos(np.deg2rad(el)) * np.cos(np.deg2rad(az)),
+                         np.cos(np.deg2rad(el)) * np.sin(np.deg2rad(az)),
+                         np.sin(np.deg2rad(el))], 1).astype(np.float32)
+        mdir = os.path.join(root, "motion_hrtf")
+        os.makedirs(mdir, exist_ok=True)
+        names = ["subject_0.sofa", "subject_1.sofa"]
+        listfile = os.path.join(mdir, "list.txt")
+        with open(listfile, "w") as f:
+            f.write("\n".join(names))
+        _, hp = ref_config("tsh")
+        args = dict(hp.train_data_args, hrtf_type="CIPIC_MOTION",
+                    hrtf_list=listfile, use_motion=True)
+        ds = MixLibriSpeechNoisyEnroll(**args)
+        rsim = ds.simulator._simulator
+        rsim.set_hrtf = lambda path: rsim.set_hrtf_arrays(irs, cart)
+        bs = hp.batch_size
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(bs)]
+        rate = bs / (time.perf_counter() - t0)
+        vel = np.array([float(i[0]["tgt_ang_vel"]) for i in items])
+        mix = np.stack([i[0]["mixture"] for i in items])
+        if not (mix.shape == (bs, 2, 5 * sr) and np.isfinite(mix).all()
+                and np.isfinite(vel).all() and np.abs(vel).max() > 0):
+            raise AssertionError(f"motion items: {mix.shape}, {vel}")
+        sofa = "not run: no h5py on this host"
+        try:
+            import h5py
+        except ImportError:
+            h5py = None
+        if h5py is not None:
+            for n_ in names:
+                with h5py.File(os.path.join(mdir, n_), "w") as f:
+                    f.create_dataset("Data.IR", data=irs)
+                    f.create_dataset("Data.SamplingRate",
+                                     data=np.array([float(sr)]))
+                    d = f.create_dataset("SourcePosition", data=np.stack(
+                        [az, el, np.ones_like(az)], 1))
+                    d.attrs["Type"] = "spherical"
+            from lookoncetohear_tpu_torch.data.dataset_variants import \
+                MixLibriSpeechMotion
+            mds = MixLibriSpeechMotion(**dict(
+                hp.val_data_args, hrtf_list=listfile,
+                hrtf_type="CIPIC_MOTION"))
+            m_items = [mds[i] for i in range(2)]
+            if not all(np.isfinite(i[0]["mixture"]).all()
+                       and i[0]["mixture"].shape == (2, 5 * sr)
+                       for i in m_items):
+                raise AssertionError("MixLibriSpeechMotion items")
+            sofa = (f"ran: MixLibriSpeechMotion over {len(names)} SOFA files, "
+                    f"{len(m_items)} validation items finite")
+        # training steps of tsh.json's model on the moving-source batch
+        task = build_task(hp)
+        with tempfile.TemporaryDirectory(prefix="port_motion_") as tmp_run, \
+                port_utils.full_float32():
+            tr = Trainer(task, tmp_run, epochs=1, device=dev)
+            batch = to_device(task.device_batch(collate(items), train=True),
+                              dev)
+            reset_counts()
+            ms, losses = [], []
+            for _ in range(MOTION_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(tr.train_step(batch, 0)["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+        expect_counts(counts, {"bilstm_scan_fwd_train": 6 * MOTION_STEPS,
+                               "bilstm_scan_bwd": 6 * MOTION_STEPS},
+                      "moving-source training steps")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"losses {losses}")
+        log(f"  known delay (3 / 6 samples) on this host: max err "
+            f"{d_err:.1e}; MixLibriSpeechNoisyEnroll with CIPIC_MOTION, "
+            f"{2 * MOTION_DIRS} directions x {MOTION_IR} taps through "
+            f"set_hrtf_arrays: {bs} train items (two 5 s scenes each, "
+            f"moving sources) at {rate:.2f} items/s in one process, "
+            f"target angular velocities {np.round(vel, 1).tolist()} deg/s; "
+            f"SOFA path {sofa}; {MOTION_STEPS} TSE steps of tsh.json's "
+            f"model at {bs} x 5 s: losses "
+            f"{[round(v, 4) for v in losses]}, "
+            f"{np.median(ms[1:]):.1f} ms a step after the first; launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+            + f" [{smi}]")
+    phase("path: moving sources", 8, moving_sources, grad=True)
 
     def separation():
         cfg, hp = ref_config("tsh")
@@ -702,7 +1057,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, reserved "
             f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB of the "
             f"card's {total / gib:.2f} GiB [{smi}]")
-    phase("path: SeparationTask", 120, separation, grad=True)
+    phase("path: SeparationTask", 140, separation, grad=True)
 
     def losses_card():
         g = np.random.default_rng(5)
@@ -742,8 +1097,89 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             f"max(1, |CPU|)): {', '.join(msg)}; CDPAM from a seeded .npz "
             f"{d_gpu:.6g} (CPU {d_cpu:.6g}, tolerance {TOL_LOSSES} "
             "relative)")
-    phase("losses on the card", 20, losses_card)
+    phase("losses on the card", 10, losses_card)
     tmp.cleanup()
+
+
+def reference_tse(g, D=64, M=2, H=64, F=97, nh=4, S=2, E=256,
+                  n_layers=3):
+    """A random state_dict in the reference streaming TSE model's key
+    layout (`model.tfgridnet.*`), at the flagship geometry."""
+    e_dim, vd = int(np.ceil(512 / F)), D // nh
+
+    def r(*shape):
+        return (0.1 * g.standard_normal(shape)).astype(np.float32)
+    p = "model.tfgridnet."
+    sd = {p + "conv.0.weight": r(D, 2 * M, 3, 3), p + "conv.0.bias": r(D),
+          p + "deconv.weight": r(D, S * 2, 3, 3), p + "deconv.bias": r(S * 2),
+          p + "embed_to_feats_proj.0.weight": r(D * F, E),
+          p + "embed_to_feats_proj.0.bias": r(D * F),
+          p + "embed_to_feats_proj.1.weight": 1 + r(D * F),
+          p + "embed_to_feats_proj.1.bias": r(D * F)}
+    for i in range(n_layers):
+        b = f"{p}blocks.{i}"
+        for nm in ("intra_norm", "inter_norm"):
+            sd[f"{b}.{nm}.norm.weight"] = 1 + r(D)
+            sd[f"{b}.{nm}.norm.bias"] = r(D)
+        sd.update({f"{b}.intra_linear.weight": r(D, 2 * H),
+                   f"{b}.intra_linear.bias": r(D),
+                   f"{b}.inter_linear.weight": r(D, H),
+                   f"{b}.inter_linear.bias": r(D)})
+        for rnn, sfxs in (("intra_rnn", ("", "_reverse")), ("inter_rnn",
+                                                            ("",))):
+            for sfx in sfxs:
+                sd.update({f"{b}.{rnn}.weight_ih_l0{sfx}": r(4 * H, D),
+                           f"{b}.{rnn}.weight_hh_l0{sfx}": r(4 * H, H),
+                           f"{b}.{rnn}.bias_ih_l0{sfx}": r(4 * H),
+                           f"{b}.{rnn}.bias_hh_l0{sfx}": r(4 * H)})
+        for nm, w in (("attn_conv_Q", e_dim * nh), ("attn_conv_K", e_dim * nh),
+                      ("attn_conv_V", vd * nh), ("attn_concat_proj", D)):
+            sd.update({f"{b}.{nm}.0.weight": r(w, D), f"{b}.{nm}.0.bias": r(w),
+                       f"{b}.{nm}.1.weight": 0.25 + r(1),
+                       f"{b}.{nm}.3.norm.weight": 1 + r(F * w // (
+                           nh if nm != "attn_concat_proj" else 1)),
+                       f"{b}.{nm}.3.norm.bias": r(F * w // (
+                           nh if nm != "attn_concat_proj" else 1))})
+    return sd
+
+
+def reference_embed(g, D=64, M=2, H=64, E=256, F=65, nh=4, n_layers=3):
+    """A random state_dict in the reference enrollment net's key layout
+    (`model.*`, espnet's TF-GridNet), at configs/embed_synthetic_5k.json's
+    geometry (n_fft 128: F = 65)."""
+    e_dim, vd = int(np.ceil(512 / F)), D // nh
+
+    def r(*shape):
+        return (0.1 * g.standard_normal(shape)).astype(np.float32)
+    sd = {"model.conv.0.weight": r(D, 2 * M, 3, 3), "model.conv.0.bias": r(D),
+          "model.conv.1.weight": 1 + r(D), "model.conv.1.bias": r(D),
+          "model.embed_proj.0.weight": r(E, F * D),
+          "model.embed_proj.0.bias": r(E),
+          "model.embed_proj.1.weight": 1 + r(E),
+          "model.embed_proj.1.bias": r(E)}
+    for i in range(n_layers):
+        b = f"model.blocks.{i}"
+        for rnn in ("intra_rnn", "inter_rnn"):
+            for sfx in ("", "_reverse"):
+                sd.update({f"{b}.{rnn}.weight_ih_l0{sfx}": r(4 * H, D * 4),
+                           f"{b}.{rnn}.weight_hh_l0{sfx}": r(4 * H, H),
+                           f"{b}.{rnn}.bias_ih_l0{sfx}": r(4 * H),
+                           f"{b}.{rnn}.bias_hh_l0{sfx}": r(4 * H)})
+        for lin in ("intra_linear", "inter_linear"):
+            sd[f"{b}.{lin}.weight"] = r(2 * H, D, 4)
+            sd[f"{b}.{lin}.bias"] = r(D)
+        for nm in ("intra_norm", "inter_norm"):
+            sd[f"{b}.{nm}.gamma"] = 1 + r(1, D, 1, 1)
+            sd[f"{b}.{nm}.beta"] = r(1, D, 1, 1)
+        heads = [(f"attn_conv_{q}_{h}", w) for h in range(nh)
+                 for q, w in (("Q", e_dim), ("K", e_dim), ("V", vd))]
+        for nm, w in heads + [("attn_concat_proj", D)]:
+            sd.update({f"{b}.{nm}.0.weight": r(w, D, 1, 1),
+                       f"{b}.{nm}.0.bias": r(w),
+                       f"{b}.{nm}.1.weight": 0.25 + r(1),
+                       f"{b}.{nm}.2.gamma": 1 + r(1, w, 1, F),
+                       f"{b}.{nm}.2.beta": r(1, w, 1, F)})
+    return sd
 
 
 def main() -> int:
@@ -769,8 +1205,8 @@ def main() -> int:
         from lookoncetohear_tpu_torch.ops.ring_step import (
             arrival_counter, ring_attend_int8_step_cuda,
             ring_attend_int8_step_reference)
-        from lookoncetohear_tpu_torch.serve.engine import (WARMUP_STEPS,
-                                                           StreamingEngine)
+        from lookoncetohear_tpu_torch.serve.engine import (
+            WARMUP_STEPS, MultiDeviceEngine, StreamingEngine)
         from lookoncetohear_tpu_torch.timing import (
             attn_inputs as ring_attn_inputs, device_ms, wall_ms)
         from lookoncetohear_tpu_torch.weights import (
@@ -850,7 +1286,18 @@ def main() -> int:
                 log(f"  bilstm_train_{kname} tile of {r} rows: {out[0]} "
                     f"threads, {out[1]} B dynamic shared memory, {out[4]} "
                     "blocks per SM")
-    phase("build", 60, build)
+    phase("build", 55, build)
+
+    def build_motion():
+        """The moving-source renderer, compiled from
+        native/motion_simulator/moving_sources.cpp into the package's
+        _build/ directory with its Makefile's flags."""
+        from lookoncetohear_tpu_torch.data import motion
+        path = motion.build_native()
+        b = motion.last_build
+        log(f"  {path}: {b['seconds']:.1f} s, cached={b['cached']}: "
+            f"{b.get('command', '')}")
+    phase("build: motion simulator", 12, build_motion)
 
     # ---- 3. BiLSTM kernel vs plain ------------------------------------
     def lstm_check():
@@ -872,7 +1319,7 @@ def main() -> int:
                 raise AssertionError(f"bilstm_scan differs: {err}")
             errs.append(err)
         res["bilstm_scan"]["max_abs_err"] = max(errs)
-    phase("bilstm_scan vs plain", 20, lstm_check)
+    phase("bilstm_scan vs plain", 10, lstm_check)
 
     # ---- 4. int8 ring step kernel vs plain ------------------------------
     b, f, nh, e, vd, wp, w = STREAMS, 97, 4, 6, 16, 56, 50
@@ -947,7 +1394,7 @@ def main() -> int:
                 f"after each; max|out diff| = {worst:.3e} ({tol})")
             errs.append(worst)
         res["ring_int8_step"]["max_abs_err"] = max(errs)
-    phase("ring_int8_step vs plain", 20, ring_check)
+    phase("ring_int8_step vs plain", 10, ring_check)
 
     # ---- 5. ring attention kernel (B3, B4) vs plain ---------------------
     def attn_inputs(rows, qdt, kvdt, seed, dk=ATTN["dk"]):
@@ -990,7 +1437,7 @@ def main() -> int:
                         f"{adk}: max|kernel - plain| = {err:.3e} ({tol})")
                     errs.append(err)
             res[name]["max_abs_err"] = max(errs)
-    phase("attn_step vs plain", 20, attn_check)
+    phase("attn_step vs plain", 10, attn_check)
 
     # ---- 6. the paths ---------------------------------------------------
     def load():
@@ -1089,7 +1536,7 @@ def main() -> int:
         res["bilstm_scan"]["max_abs_err"] = max(
             res["bilstm_scan"]["max_abs_err"], *errs)
         del enroll["rnn_inputs"]
-    phase("bilstm_scan vs plain, enrollment shapes", 20, lstm_enroll_check)
+    phase("bilstm_scan vs plain, enrollment shapes", 10, lstm_enroll_check)
 
     # the eval's batch of 4 x 5 s (phase 8): the full forward's scan and
     # EmbedNet's intra and inter scans; the random inputs are kept for
@@ -1143,7 +1590,7 @@ def main() -> int:
                                       True))
         res["bilstm_scan"]["max_abs_err"] = max(
             res["bilstm_scan"]["max_abs_err"], *errs)
-    phase("bilstm_scan vs plain, eval shapes", 30, lstm_eval_check)
+    phase("bilstm_scan vs plain, eval shapes", 10, lstm_eval_check)
 
     emb = rng.standard_normal((STREAMS, 256)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
@@ -1217,9 +1664,9 @@ def main() -> int:
             f"from the same state: max|GPU - CPU| / peak = {worst:.3e} "
             f"(tolerance {TOL_PATH}); float state within {TOL_STATE}; "
             f"{flips} int8 ring entries off by one in {steps} steps")
-    phase("path: GPU engine vs CPU engine", 15,
+    phase("path: GPU engine vs CPU engine", 10,
           lambda: path_vs_cpu(torch.int8, "ring_int8_step"))
-    phase("path: f32-ring GPU engine vs CPU engine", 15,
+    phase("path: f32-ring GPU engine vs CPU engine", 10,
           lambda: path_vs_cpu(None, "attn_step_f32"))
 
     def streamed_vs_full():
@@ -1255,7 +1702,7 @@ def main() -> int:
             f"chunk k - full chunk k-1| = {err:.3e} (atol {TOL_STREAMED}); "
             f"max|GPU full - CPU full| / peak = {err_cpu / peak:.3e} "
             f"(tolerance {TOL_PATH})")
-    phase("path: streamed == full forward on the card", 15,
+    phase("path: streamed == full forward on the card", 10,
           streamed_vs_full)
 
     xs = torch.from_numpy(chunks_of(STREAMS, PATH_STEPS, 2)).to(dev)
@@ -1435,6 +1882,163 @@ def main() -> int:
         log(f"  {len(host)} steps, depth 4: step_pipelined + drain == step, "
             f"bit for bit, in order")
     phase("pipelined == step", 10, pipelined)
+
+    def cursors(eng):
+        return [int(b["pos"]) for b in eng.state["blocks"] if "pos" in b]
+
+    def share_state(one, two):
+        """Copy the 64-stream engine's carried state into the split
+        engines' (its first half of the rows into the first engine)."""
+        half = STREAMS // len(two.engines)
+        for (_, src), *dsts in zip(state_leaves(one),
+                                   *map(state_leaves, two.engines)):
+            for j, (_, dst) in enumerate(dsts):
+                dst.copy_(src[j * half:(j + 1) * half]
+                          if src.ndim and src.shape[0] == STREAMS else src)
+
+    def split_engines():
+        """`MultiDeviceEngine` over ["cuda:0", "cuda:0"]: two graph
+        engines, 32 streams each, against one 64-stream graph engine over
+        GRAPH_STEPS steps from the same start, at the float32 ring (within
+        TOL_PATH of the peak; bit for bit on an H100), at an int8
+        ring under float32 compute and at bf16 + int8; the engines' ring
+        cursors equal after every step. With an int8 ring a GEMM over 32
+        rows that rounds apart from one over 64 (the flat-norm
+        statistics at float32, every bf16 GEMM) can move a ring entry by
+        one step, and the carried state compounds it over the steps, as
+        between the GPU and CPU engines: there each step also runs from
+        the single engine's state copied into the split engines, which
+        holds one step to TOL_PATH (float32) or TOL_SPLIT_BF16 (bf16) of
+        the peak; free-running, the split's largest and RMS deviations
+        are held to TOL_SPLIT_FREE, and printed beside the precision's
+        own RMS error (the single engine against a float32-ring engine on
+        the same chunks)."""
+        for label, dtype, kv_dtype, tol in (
+                ("float32 ring", torch.float32, None, TOL_PATH),
+                ("float32 + int8 K/V", torch.float32, torch.int8, TOL_PATH),
+                ("bf16 + int8 K/V", torch.bfloat16, torch.int8,
+                 TOL_SPLIT_BF16)):
+            one = StreamingEngine(net, sd, max_streams=STREAMS, dtype=dtype,
+                                  kv_dtype=kv_dtype)
+            two = MultiDeviceEngine(net, sd, max_streams=STREAMS,
+                                    dtype=dtype, kv_dtype=kv_dtype,
+                                    devices=["cuda:0", "cuda:0"])
+            for eng in (one, two):
+                for s in range(STREAMS):
+                    eng.add_stream(s, emb[s])
+            x = xs.to(dtype)
+            shared = kv_dtype == torch.int8
+            err = peak = step_err = sq_err = sq = sq_prec = 0.0
+            carried = [t for e in (one, *two.engines) for t in e._carried()]
+            if shared:
+                # the precision's own error: the float32-ring engine
+                ref = StreamingEngine(net, sd, max_streams=STREAMS)
+                for s in range(STREAMS):
+                    ref.add_stream(s, emb[s])
+            for i in range(GRAPH_STEPS):
+                xi = x[i % PATH_STEPS]
+                if shared and i > 0:
+                    # one step from the single engine's state, then both
+                    # back to where they were
+                    saved = [t.clone() for t in carried]
+                    share_state(one, two)
+                    y1 = one.step(xi).float()
+                    step_err = max(step_err, (y1 - two.step(xi).float())
+                                   .abs().max().item())
+                    for t, v in zip(carried, saved):
+                        t.copy_(v)
+                y1 = one.step(xi).float()
+                y2 = two.step(xi).float()
+                if shared:
+                    sq_prec += (y1 - ref.step(xs[i % PATH_STEPS])).pow(2) \
+                        .sum().item()
+                if not (y2.shape == y1.shape and torch.isfinite(y2).all()):
+                    raise AssertionError(f"{label}: step {i} output")
+                err = max(err, (y1 - y2).abs().max().item())
+                peak = max(peak, y1.abs().max().item())
+                sq_err += (y1 - y2).pow(2).sum().item()
+                sq += y1.pow(2).sum().item()
+                if any(cursors(e) != cursors(one) for e in two.engines):
+                    raise AssertionError(f"{label}: step {i} cursors differ")
+            rms, rms_prec = (sq_err / sq) ** 0.5, (sq_prec / sq) ** 0.5
+            if shared:
+                free_max, free_rms = TOL_SPLIT_FREE[label]
+            bad = not peak > 0 or (
+                step_err > tol * peak or err > free_max * peak
+                or rms > free_rms if shared else err > tol * peak)
+            if bad:
+                raise AssertionError(
+                    f"{label}: 2 engines vs 1: max {err}, one step from the "
+                    f"same state {step_err}, RMS {rms} (peak {peak}, "
+                    f"tolerance {tol})")
+            ms1 = wall_ms(lambda i: one.step(x[i % PATH_STEPS]), 20)
+            ms2 = wall_ms(lambda i: two.step(x[i % PATH_STEPS]), 20)
+            held = (f"one step from the same state {step_err / peak:.3e} "
+                    f"of the peak (tolerance {tol}); free-running: max "
+                    f"{err / peak:.3e} of the peak (tolerance {free_max}), "
+                    f"RMS {rms:.3e} of the output's (tolerance "
+                    f"{free_rms}; the precision's own against the float32 "
+                    f"ring {rms_prec:.3e})") if shared else \
+                (f"max|2 engines - 1| / peak = {err / peak:.3e} (tolerance "
+                 f"{tol})")
+            log(f"  {label}, 2 x {STREAMS // 2} streams vs 1 x {STREAMS}, "
+                f"{GRAPH_STEPS} steps: {held}; cursors equal every step; "
+                f"step call to sync {ms2:.3f} ms (2 engines) vs {ms1:.3f} ms "
+                f"(1) [{smi}]")
+    phase("path: 64 streams over 2 engines", 12, split_engines)
+
+    def profiling_phase():
+        """`profiling` on the card: LatencyRecorder over PROFILE_STEPS
+        steps of the 64-stream bf16 + int8 graph engine, device_step_time
+        by CUDA events, cost_analysis of one 64-stream float32 step on the
+        card (aten ops: the hand-written kernels are not counted) and on
+        the CPU (their plain versions counted), and a trace written."""
+        from lookoncetohear_tpu_torch import profiling
+        eng, x = graphs["bf16 + int8 K/V"]
+        saved = [t.clone() for t in eng._carried()]
+        rec = profiling.LatencyRecorder()
+        for i in range(PROFILE_STEPS):
+            with rec.measure(sync=dev):
+                eng.step(x[i % PATH_STEPS])
+        lat = rec.summary()
+        dev_ms = profiling.device_step_time(eng.step, (x[0],)) * 1e3
+        for t, v in zip(eng._carried(), saved):
+            t.copy_(v)
+        if not (lat["n"] == PROFILE_STEPS and 0 < lat["p50_ms"]
+                <= lat["p99_ms"] and dev_ms > 0):
+            raise AssertionError(f"latency {lat}, device {dev_ms}")
+        eager, x32 = engines["float32 ring"]
+        gpu_cost = profiling.cost_analysis(eager.step, x32[0])
+        cpu_eng = StreamingEngine(net, sd, max_streams=STREAMS,
+                                  device="cpu")
+        for s in range(STREAMS):
+            cpu_eng.add_stream(s, emb[s])
+        cpu_cost = profiling.cost_analysis(cpu_eng.step, x32[0].cpu())
+        with tempfile.TemporaryDirectory(prefix="port_trace_") as tmp:
+            with profiling.trace(tmp) as prof:
+                for i in range(3):
+                    eager.step(x32[i])
+            with open(os.path.join(tmp, "trace.json")) as f:
+                n_events = len(json.load(f)["traceEvents"])
+        ran = {k: sum(TRACE_NAMES[k] in ev.name for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA)
+               for k in ("bilstm_scan", "attn_step_f32")}
+        if not (0 < gpu_cost["flops"] < cpu_cost["flops"] and n_events
+                and all(ran.values())):
+            raise AssertionError(f"flops {gpu_cost} / {cpu_cost}, "
+                                 f"{n_events} trace events, kernels {ran}")
+        log(f"  LatencyRecorder, {PROFILE_STEPS} graph steps (bf16 + int8, "
+            f"{STREAMS} streams, call to sync): p50 {lat['p50_ms']:.3f} / "
+            f"p90 {lat['p90_ms']:.3f} / p99 {lat['p99_ms']:.3f} / max "
+            f"{lat['max_ms']:.3f} ms; device_step_time {dev_ms:.3f} ms "
+            f"(CUDA events) [{smi}]; cost_analysis of one {STREAMS}-stream "
+            f"float32 step: {gpu_cost['flops'] / 1e9:.3f} GFLOP on the card "
+            f"(aten ops), {cpu_cost['flops'] / 1e9:.3f} GFLOP on the CPU "
+            f"(the plain versions' products too), "
+            f"{gpu_cost['bytes_accessed'] / 1e6:.2f} MB in and out; trace: "
+            f"{n_events} events in 3 eager float32-ring steps, the port's "
+            f"kernels {ran}")
+    phase("profiling", 25, profiling_phase)
 
     # ---- 7. times (CUDA events) ----------------------------------------
     def engine_times(label, kernel, absent=()):
@@ -1665,7 +2269,7 @@ def main() -> int:
             f"{min(ev_ms):.2f}-{max(ev_ms):.2f}), "
             f"{np.median(walls):.2f} ms from call to synchronize, RTF "
             f"{fwd_ms / (FULL_SECONDS * 1e3):.4f} [{smi}]")
-    phase("times", 75, times)
+    phase("times", 62, times)
 
     # ---- 8. the two-stage eval and the serving-precision study ---------
     def eval_5k(mode, ref, enroll_args, per_batch):
@@ -1730,7 +2334,7 @@ def main() -> int:
              "runs/embed_r5_5k", "--enroll_ckpt", EMBED_CKPT],
             {"bilstm_scan": 3 + 6, "bilstm_scan_fwd_train": 3})
         return out
-    evals = phase("eval: two-stage, 5k test split", 60, eval_both)
+    evals = phase("eval: two-stage, 5k test split", 37, eval_both)
 
     def serving_precision():
         """`kv_quality.run`: the first EVAL_SCENES test scenes as as many
@@ -1765,7 +2369,7 @@ def main() -> int:
             f"(limit {KV_COST_DB} dB); {secs:.1f} s with the scenes' "
             f"rendering [{smi}]")
         return means
-    kv_means = phase("eval: serving precision, 64 streams", 40,
+    kv_means = phase("eval: serving precision, 64 streams", 17,
                      serving_precision)
 
     # ---- 9. training ------------------------------------------------------
@@ -1845,7 +2449,7 @@ def main() -> int:
                 train_scans[key] = (xp, w_hh, h0, c0, dys, dct, y, cs)
         res["bilstm_scan_fwd_train"]["max_abs_err"] = fwd_err
         res["bilstm_scan_bwd"]["max_abs_err"] = bwd_err
-    phase("bilstm_scan training kernels vs plain", 30, train_scan_check)
+    phase("bilstm_scan training kernels vs plain", 15, train_scan_check)
 
     from lookoncetohear_tpu_torch import utils as port_utils
     from lookoncetohear_tpu_torch.data.loader import collate
@@ -1964,6 +2568,7 @@ def main() -> int:
                 if not (len(recs) == 1 and recs[0]["step"] == 3
                         and np.isfinite(nums).all()):
                     raise AssertionError(f"{name}: metrics {recs}")
+                cli_runs[name] = (recs[0], want)
                 for fn in ("last.ckpt", "best.ckpt", "ckpt_meta.json"):
                     if not os.path.exists(os.path.join(run_dir, fn)):
                         raise AssertionError(f"{name}: no {fn}")
@@ -1984,7 +2589,184 @@ def main() -> int:
                     + f"; best.ckpt: {len(got)} tensors, keys and shapes of "
                     f"{ckpt.split('/')[-1]}, loads strictly; launches: "
                     + ", ".join(f"{k} {v}" for k, v in want.items()))
-    phase("path: trainer CLI", 90, trainer_cli, grad=True)
+    cli_runs: dict = {}
+    phase("path: trainer CLI", 70, trainer_cli, grad=True)
+
+    def ddp_one():
+        """`parallel.distributed.maybe_initialize` joins an NCCL group of
+        one process over tcp://localhost (a free port); the join and the
+        first collective (which sets up NCCL's communicator) are timed
+        apart. In that group the trainer CLI runs the epoch of "path:
+        trainer CLI" (3 steps, 1 validation batch) on the same batches,
+        the model unwrapped at one rank while the group's collectives
+        run (the batch-count agreement, the metric sums, the checkpoint
+        barrier): its training metrics equal that plain run's to TOL_DDP
+        and its validation metrics to TOL_DDP_VAL, the kernels launch as
+        there, and rank 0 writes the checkpoints. Then DDP itself on
+        NCCL: the trainer's `ddp_wrap` around a seeded TSE model, its
+        construction timed; from the same weights on one fixed 8 x 5 s
+        batch, a loss and backward of the unwrapped model twice (the
+        card's own spread) and of DDP once: the loss equal to TOL_DDP,
+        every gradient DDP reduced within TOL_DDP_GRAD of max(peak,
+        floor) of the unwrapped one's; then DDP_STEPS steps of each, the
+        steady step's ms (median after the first) and the losses'
+        spread. Last, out of the group, the plain CLI epoch again: it
+        follows a CLI run, as the group's does (each run stops the
+        loaders' fork server at its end), so the two epochs' seconds
+        compare the group alone; both are profiled (cProfile) for the
+        seconds their loader workers' launches take."""
+        import cProfile
+        import pstats
+        import socket
+
+        import torch.distributed as dist
+
+        from lookoncetohear_tpu_torch import trainer as cli
+        from lookoncetohear_tpu_torch.parallel import distributed
+        from lookoncetohear_tpu_torch.train.trainer import (Trainer,
+                                                            build_task,
+                                                            ddp_wrap)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(LOOKONCE_COORDINATOR=f"localhost:{port}",
+                   LOOKONCE_NUM_PROCESSES="1", LOOKONCE_PROCESS_ID="0")
+        os.environ.update(env)
+
+        def steps(tr, batch):
+            losses, ms = [], []
+            for _ in range(DDP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(tr.train_step(batch, 0)["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return losses, float(np.median(ms[1:])), ms[0]
+
+        def cli_epoch(run_dir):
+            """The CLI epoch's seconds, and those of its worker launches
+            (multiprocessing's `BaseProcess.start`)."""
+            prof = cProfile.Profile()
+            t0 = time.perf_counter()
+            prof.enable()
+            cli.run(["--config", TSH_5K, "--run_dir", run_dir, "--frac",
+                     str(TRAIN_FRAC), "--epochs", "1"])
+            torch.cuda.synchronize()
+            prof.disable()
+            stats = pstats.Stats(prof).stats
+            return time.perf_counter() - t0, sum(
+                v[3] for (f, _, fn), v in stats.items()
+                if fn == "start" and f.endswith("multiprocessing/process.py"))
+
+        def grads(tr, batch):
+            tr.opt.zero_grad(set_to_none=True)
+            loss, _ = tr.task.loss_and_metrics(batch, 0)
+            loss.backward()
+            out = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                   for p in tr.params]
+            tr.opt.zero_grad(set_to_none=True)
+            return loss.item(), out
+
+        def grad_dev(got, ref):
+            floor = 1e-3 * max(g.abs().max().item() for g in ref)
+            return max(((a - b).abs().max() / max(b.abs().max().item(),
+                                                  floor)).item()
+                       for a, b in zip(got, ref))
+        try:
+            t0 = time.perf_counter()
+            if not distributed.maybe_initialize():
+                raise AssertionError("no process group joined")
+            join_s = time.perf_counter() - t0
+            group = (dist.get_backend(), dist.get_world_size(),
+                     dist.get_rank())
+            if group != ("nccl", 1, 0):
+                raise AssertionError(f"group {group}")
+            t0 = time.perf_counter()
+            if distributed.agree_count(7, "min") != 7:
+                raise AssertionError("agree_count over one rank")
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            plain, want = cli_runs["TSETask"]
+            hp = port_utils.Params(TSH_5K)
+            with tempfile.TemporaryDirectory(prefix="port_ddp_") as tmp:
+                run_dir = os.path.join(tmp, "run")
+                reset_counts()
+                secs, launch_s = cli_epoch(run_dir)
+                counts = read_counts()
+                expect_counts(counts, want, "trainer CLI in a group of 1")
+                with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                    (rec,) = [json.loads(line) for line in f]
+                files = sorted(os.listdir(run_dir))
+                host = host_batch(hp, hp.batch_size)
+                with port_utils.full_float32():
+                    trs = [Trainer(build_task(hp), os.path.join(tmp, w),
+                                   epochs=1, device=dev)
+                           for w in ("plain", "ddp")]
+                    if isinstance(trs[0].task.model,
+                                  torch.nn.parallel.DistributedDataParallel):
+                        raise AssertionError("wrapped at one rank")
+                    trs[1].model.load_state_dict(trs[0].model.state_dict())
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trs[1].task.model = ddp_wrap(trs[1].model, dev)
+                    torch.cuda.synchronize()
+                    wrap_s = time.perf_counter() - t0
+                    batch = to_device(
+                        trs[0].task.device_batch(host, train=True), dev)
+                    (loss_p, g_p), (_, g_p2), (loss_d, g_d) = [
+                        grads(t, batch) for t in (trs[0], trs[0], trs[1])]
+                    spread, g_err = grad_dev(g_p2, g_p), grad_dev(g_d, g_p)
+                    (l_plain, ms_plain, first_plain), \
+                        (l_ddp, ms_ddp, first_ddp) = [steps(t, batch)
+                                                      for t in trs]
+                del trs, batch, g_p, g_p2, g_d
+            for k in ("last.ckpt", "best.ckpt", "ckpt_meta.json"):
+                if k not in files:
+                    raise AssertionError(f"rank 0 wrote no {k}: {files}")
+            diffs = {k: abs(rec[k] - v) / max(1.0, abs(v))
+                     for k, v in plain.items() if "/" in k}
+            if not (rec["step"] == 3 and all(
+                    v <= (TOL_DDP if k.startswith("train/") else TOL_DDP_VAL)
+                    for k, v in diffs.items())):
+                raise AssertionError(f"group of 1 vs plain: {diffs}")
+            d_loss = max(abs(a - b) / max(1.0, abs(a))
+                         for a, b in zip(l_plain, l_ddp))
+            if not (abs(loss_d - loss_p) <= TOL_DDP * max(1.0, abs(loss_p))
+                    and g_err <= TOL_DDP_GRAD
+                    and np.isfinite(l_ddp).all() and l_ddp[-1] < l_ddp[0]):
+                raise AssertionError(
+                    f"DDP: loss {loss_d} vs {loss_p}, gradients {g_err} "
+                    f"(unwrapped twice: {spread}), losses {l_ddp}")
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        with tempfile.TemporaryDirectory(prefix="port_plain_") as tmp:
+            plain_s, plain_launch_s = cli_epoch(os.path.join(tmp, "run"))
+        log(f"  NCCL group of 1 (tcp://localhost:{port}): joined in "
+            f"{join_s:.2f} s, the first collective (NCCL's communicator) "
+            f"{first_s:.2f} s; the trainer CLI in the group, the model "
+            f"unwrapped: TSETask, 3 steps + 1 validation batch of 8 x 5 s "
+            f"in {secs:.1f} s ({launch_s:.1f} s of it launching loader "
+            f"workers), the plain epoch after it {plain_s:.1f} s "
+            f"({plain_launch_s:.1f} s) [{smi}]; |group - plain| / max(1, "
+            "|plain|): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items())
+            + f" (tolerance {TOL_DDP} train, {TOL_DDP_VAL} validation); "
+            f"train/loss {rec['train/loss']:.6f}; rank 0 wrote {files}; "
+            "launches as the plain run: "
+            + ", ".join(f"{k} {counts[k]}" for k in want)
+            + f". DDP on NCCL (`ddp_wrap`): built in {wrap_s:.3f} s; one "
+            f"8 x 5 s batch from the same weights: loss {loss_d:.6f} vs "
+            f"{loss_p:.6f}, gradients within {g_err:.2e} of max(peak, "
+            f"floor) (tolerance {TOL_DDP_GRAD}; the unwrapped model "
+            f"against itself {spread:.2e}); {DDP_STEPS} steps: "
+            f"{ms_ddp:.1f} ms a step (median after the first, "
+            f"{first_ddp:.1f} ms first) against {ms_plain:.1f} ms "
+            f"unwrapped ({first_plain:.1f} ms first), losses "
+            f"{l_ddp[0]:.4f} -> {l_ddp[-1]:.4f}, within {d_loss:.2e} of "
+            f"the unwrapped run's [{smi}]")
+    phase("path: DDP, world size 1", 80, ddp_one, grad=True)
 
     class StepOnce:
         """A training step in the shape `profile_steps` drives."""
@@ -2127,11 +2909,71 @@ def main() -> int:
                     + ("forward" if kname.endswith("train") else
                        "forward + backward")
                     + f" {l_ms * 1e3:.1f} us [{smi}]")
-    phase("times: training", 60, train_times, grad=True)
+    phase("times: training", 35, train_times, grad=True)
 
     corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
                   launch_counts,
                   {name: res[f"train_{name}"]["ms"] for name, *_ in tasks})
+
+    def convert_phase():
+        """Random state_dicts in the reference's key layout (the
+        streaming TSE net at the flagship geometry, the enrollment net at
+        configs/embed_synthetic_5k.json's), converted by `convert` and
+        loaded strictly into `Net` / `EmbedNet` on the card and on the
+        CPU; the card's output on CONVERT_SECONDS of seeded audio equals
+        the CPU's to TOL_CONVERT of its peak."""
+        from lookoncetohear_tpu_torch.convert import (load_reference,
+                                                      reference_state_dict)
+        g = np.random.default_rng(9)
+        n = int(CONVERT_SECONDS * 16000)
+        x = (0.3 * g.standard_normal((2, 2, n))).astype(np.float32)
+        e = g.standard_normal((2, 1, 256)).astype(np.float32)
+        embed_params = port_utils.Params(EMBED_5K).pl_module_args[
+            "model_params"]
+        msg = []
+        for name, cls, params, ref, args in (
+                ("Net", Net, FLAGSHIP, reference_tse(g), (x, e)),
+                ("EmbedNet", EmbedNet, embed_params, reference_embed(g),
+                 (x,))):
+            port_sd = reference_state_dict(ref)
+            outs = []
+            for d in ("cuda", "cpu"):
+                m = load_reference(cls(**params, device=d), ref).eval()
+                with port_utils.full_float32():
+                    outs.append(m(*(torch.from_numpy(a).to(d)
+                                    for a in args)).float().cpu().numpy())
+            got, want = outs
+            peak = float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            if not (np.isfinite(got).all() and peak > 0
+                    and err <= TOL_CONVERT * peak):
+                raise AssertionError(f"{name}: card vs CPU {err} (peak "
+                                     f"{peak})")
+            msg.append(f"{name}: {len(ref)} reference tensors -> "
+                       f"{len(port_sd)} parameters, loaded strictly; output "
+                       f"{list(got.shape)}, max|card - CPU| / peak = "
+                       f"{err / peak:.2e}")
+        log("  " + "; ".join(msg) + f" (tolerance {TOL_CONVERT})")
+    phase("convert", 10, convert_phase)
+
+    def demo():
+        """`stream_demo` with the committed checkpoints: the synthetic
+        test scene enrolled by EmbedNet and streamed through the graph
+        engine in 8 ms chunks; the wavs written, SI-SNRi above 0 dB."""
+        from lookoncetohear_tpu_torch import stream_demo
+        with tempfile.TemporaryDirectory(prefix="port_demo_") as tmp:
+            out = stream_demo.run(["--tse_ckpt", CKPT, "--embed_ckpt",
+                                   EMBED_CKPT, "--out_dir", tmp])
+            wavs = sorted(os.listdir(tmp))
+        if not (wavs == ["extracted.wav", "mixture.wav", "target.wav"]
+                and np.isfinite(out["extracted"]).all()
+                and out["si_snr_i"] > 0):
+            raise AssertionError(f"demo: {wavs}, SI-SNRi {out['si_snr_i']}")
+        chunks = out["extracted"].shape[-1] // 128
+        log(f"  committed checkpoints, 5 s scene, {chunks} chunks of 8 ms "
+            f"through the graph engine: SI-SNR {out['si_snr_in']:.2f} -> "
+            f"{out['si_snr_out']:.2f} dB, SI-SNRi {out['si_snr_i']:.2f} dB")
+    phase("demo", 10, demo)
 
     def no_children():
         """The eval loaders' fork server and resource tracker stopped

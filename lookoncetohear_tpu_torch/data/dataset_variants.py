@@ -8,12 +8,12 @@
   to face in the mixture; the label is its first channel.
 * `MixLibriSpeechCIPIC`: clean enrollment (clean LibriSpeech utterances
   and their precomputed d-vectors).
+* `MixLibriSpeechMotion`: `MixLibriSpeechCIPIC` with moving sources
+  (the CIPIC motion simulator, `motion.py`).
 * `MixLibriSpeechDM`: train-only dynamic mixing (scenes made per item,
   no jams files).
 * `SpeechSeparationDataset`: 2-speaker pairs for PIT separation.
 * `OracleMixLibriSpeech`: every source returned, the target first.
-
-The JAX package's `MixLibriSpeechMotion` (moving sources) is not ported.
 """
 
 from __future__ import annotations
@@ -210,6 +210,17 @@ class MixLibriSpeechCIPIC(MixLibriSpeechNoisyEnroll):
             "tgt_spk_idx": np.int64(tgt_spk_idx),
         }
         return inputs, targets
+
+
+class MixLibriSpeechMotion(MixLibriSpeechCIPIC):
+    """Moving sources under the clean-enrollment scheme: `hrtf_type`
+    CIPIC_MOTION unless given."""
+
+    def __init__(self, *args, motion_use_piecewise_arcs=False, **kwargs):
+        kwargs["hrtf_type"] = kwargs.get("hrtf_type", "CIPIC_MOTION")
+        kwargs["use_motion"] = True
+        kwargs["motion_use_piecewise_arcs"] = motion_use_piecewise_arcs
+        super().__init__(*args, **kwargs)
 
 
 class MixLibriSpeechDM(MixLibriSpeechCIPIC):

@@ -11,7 +11,8 @@ and `np.random` seeds.
 
 Each item renders TWO scenes, the mixture and an enrollment of the same
 speaker placed face to face, with one spatializer seed. Moving sources
-(`use_motion`, `CIPIC_MOTION`) are not ported and are refused.
+(`use_motion`, `CIPIC_MOTION`) render through the native renderer
+(`motion.py`).
 """
 
 from __future__ import annotations
@@ -72,18 +73,14 @@ def _load_embedding_map(embed_dir: str, spk_id: str) -> dict:
                             f"in {embed_dir}")
 
 
-MOTION_REFUSED = ("moving sources (data/motion.py and "
-                  "MixLibriSpeechMotion) are not ported")
-
-
 def make_simulator(hrtf_type: str, hrtf_list, sr: int, dset: str,
                    use_motion: bool = False,
                    motion_use_piecewise_arcs: bool = False):
     """The spatializer a config's `hrtf_type` names. `MultiCh` and the
-    SOFA sets (CIPIC, APL, RRBRIR) need h5py; ASH, CATTRIR and PRA are
-    wav sets."""
-    if use_motion or hrtf_type == "CIPIC_MOTION":
-        raise NotImplementedError(MOTION_REFUSED)
+    SOFA sets (CIPIC, APL, RRBRIR, CIPIC_MOTION) need h5py; ASH, CATTRIR
+    and PRA are wav sets. `use_motion` moves `MultiCh`'s CIPIC sources
+    (`motion.CIPICMotionSimulator`); `CIPIC_MOTION` is that simulator
+    alone."""
     if hrtf_type == "CIPIC":
         return sp.CIPICSimulator(hrtf_list, sr)
     if hrtf_type == "APL":
@@ -97,7 +94,19 @@ def make_simulator(hrtf_type: str, hrtf_list, sr: int, dset: str,
     if hrtf_type == "PRA":
         return sp.PRASimulator(hrtf_list, sr, dset=dset)
     if hrtf_type == "MultiCh":
-        return sp.MultiChSimulator(hrtf_list, sr, dset=dset)
+        if use_motion:
+            from lookoncetohear_tpu_torch.data.motion import \
+                CIPICMotionSimulator
+
+            def cipic_type(sofa, fs):
+                return CIPICMotionSimulator(
+                    sofa, fs, use_piecewise_arcs=motion_use_piecewise_arcs)
+        else:
+            cipic_type = sp.CIPICSimulator
+        return sp.MultiChSimulator(hrtf_list, sr, cipic_type, dset=dset)
+    if hrtf_type == "CIPIC_MOTION":
+        from lookoncetohear_tpu_torch.data.motion import CIPICMotionSimulator
+        return CIPICMotionSimulator(hrtf_list, sr)
     raise NotImplementedError(hrtf_type)
 
 

@@ -1,5 +1,6 @@
 """Host-side batching (counterpart of `collate`, `shard_indices` and
-`DataLoader` in `lookoncetohear_tpu/data/loader.py`, single process):
+`DataLoader` in `lookoncetohear_tpu/data/loader.py`; in a process group
+each rank loads its own shard of every epoch):
 scenes are rendered by `torch.utils.data.DataLoader` workers and
 collated into numpy batches. Only the eval and training loops move the
 numeric fields to the device; strings and metadata stay host-side
@@ -40,22 +41,30 @@ def collate(samples: list) -> Any:
     return np.stack([np.asarray(s) for s in samples])
 
 
-def shard_indices(n: int, *, shuffle: bool, seed: int,
-                  epoch: int) -> np.ndarray:
-    """The scene order of an epoch: every index, permuted by
-    `default_rng((seed, epoch))` when shuffling (the JAX package's
-    order on one process)."""
+def shard_indices(n: int, *, shuffle: bool, seed: int, epoch: int,
+                  process_index: int | None = None,
+                  process_count: int | None = None) -> np.ndarray:
+    """This rank's scenes of an epoch: every rank permutes the indices
+    the same way (`default_rng((seed, epoch))`, when shuffling) and
+    takes the strided slice [process_index::process_count], as the JAX
+    package does. The rank and count default to the process group's
+    (0 and 1 outside one)."""
+    from lookoncetohear_tpu_torch.parallel import distributed
+    if process_index is None:
+        process_index = distributed.rank()
+    if process_count is None:
+        process_count = distributed.world_size()
     idx = np.arange(n)
     if shuffle:
         idx = np.random.default_rng((seed, epoch)).permutation(idx)
-    return idx
+    return idx[process_index::process_count]
 
 
 class DataLoader:
-    """Epoch iterator: `shard_indices` -> batches of `batch_size` (the
-    ragged tail dropped with `drop_last`) -> `collate`, rendered by
-    `num_workers` fork-server workers as `batches` does. `set_epoch`
-    picks the epoch's shuffle."""
+    """Epoch iterator: `shard_indices` (this rank's shard) -> batches of
+    `batch_size` (the ragged tail dropped with `drop_last`) -> `collate`,
+    rendered by `num_workers` fork-server workers as `batches` does.
+    `set_epoch` picks the epoch's shuffle."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, num_workers: int = 0,
@@ -71,14 +80,17 @@ class DataLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def _indices(self) -> np.ndarray:
+        return shard_indices(len(self.dataset), shuffle=self.shuffle,
+                             seed=self.seed, epoch=self.epoch)
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._indices())
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
 
     def _index_batches(self) -> list:
-        idx = shard_indices(len(self.dataset), shuffle=self.shuffle,
-                            seed=self.seed, epoch=self.epoch)
+        idx = self._indices()
         if self.drop_last:
             idx = idx[:len(idx) - len(idx) % self.batch_size]
         return [idx[i:i + self.batch_size].tolist()

@@ -33,17 +33,37 @@ from scipy.signal import fftconvolve
 from lookoncetohear_tpu_torch.data import audio_io
 
 
-@functools.lru_cache(maxsize=8)
-def _load_sofa(path: str):
-    """Read a SOFA file -> (ir [M, R, N] float32, sampling_rate)."""
+def open_sofa(path: str):
+    """A SOFA file opened for reading (an `h5py.File`, h5py imported
+    here)."""
     try:
         import h5py
     except ImportError:
         raise ImportError("reading SOFA HRTFs requires h5py") from None
-    with h5py.File(path, "r") as f:
+    return h5py.File(path, "r")
+
+
+@functools.lru_cache(maxsize=8)
+def _load_sofa(path: str):
+    """Read a SOFA file -> (ir [M, R, N] float32, sampling_rate, source
+    positions [M, 3] float32: cartesian, on the unit sphere when stored
+    as spherical; None where the file holds none)."""
+    with open_sofa(path) as f:
         ir = np.asarray(f["Data.IR"], dtype=np.float32)
         sr = float(np.asarray(f["Data.SamplingRate"]).reshape(-1)[0])
-    return ir, sr
+        if "SourcePosition" not in f:
+            return ir, sr, None
+        pos = np.asarray(f["SourcePosition"], dtype=np.float64)
+        ptype = f["SourcePosition"].attrs.get("Type", b"spherical")
+    if isinstance(ptype, bytes):
+        ptype = ptype.decode()
+    if "spherical" in str(ptype):
+        az = np.deg2rad(pos[:, 0])
+        el = np.deg2rad(pos[:, 1])
+        pos = np.stack([np.cos(el) * np.cos(az),
+                        np.cos(el) * np.sin(az),
+                        np.sin(el)], axis=1)
+    return ir, sr, pos[:, :3].astype(np.float32)
 
 
 def _convolve_binaural(src: np.ndarray, rir: np.ndarray) -> np.ndarray:
@@ -66,7 +86,7 @@ class SOFASimulator:
         self.fs = fs
 
     def _rir(self, sofa_path: str, idx: int) -> np.ndarray:
-        ir, sr = _load_sofa(sofa_path)
+        ir, sr, _ = _load_sofa(sofa_path)
         rir = ir[idx]
         if int(sr) != self.fs:
             rir = audio_io.resample(rir, int(sr), self.fs)

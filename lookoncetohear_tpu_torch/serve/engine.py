@@ -28,7 +28,11 @@ changes), every state leaf, and its output. Write those in place
 on the old one. `cuda_graph=False` runs the same step eagerly, op by
 op: the kernels' launch counters count only eager calls (a replay runs
 no Python), and a profile then shows each op's launch. On the CPU the
-step is always eager. Multi-GPU serving is not ported yet.
+step is always eager.
+
+`MultiDeviceEngine` stands for the JAX engine's `mesh=` path: one
+engine per device (`devices=`), each over its slice of the streams,
+stepped in lockstep with no collectives, since streams are independent.
 """
 
 from __future__ import annotations
@@ -386,6 +390,79 @@ class StreamingEngine:
             "rtf": per / chunk_s,
             "streams": self.n,
         }
+
+
+class MultiDeviceEngine:
+    """`max_streams` streams split evenly over `devices` (a list of
+    torch devices, e.g. ["cuda:0", "cuda:1"]; the same device may repeat):
+    slot s lives on engine s // (max_streams / n) as its slot
+    s % (max_streams / n). Every step steps every engine once on its
+    slice of the chunks, so their shared ring cursors stay equal; each
+    engine is a `StreamingEngine` with the given precision and graph
+    options. The engines' launches are queued before any output is
+    gathered, so engines on different cards run at the same time."""
+
+    def __init__(self, model, params=None, max_streams: int = 64,
+                 dtype=torch.float32, kv_dtype=None, devices=("cuda",),
+                 cuda_graph: bool = True):
+        n = len(devices)
+        if n == 0 or max_streams % n:
+            raise ValueError(f"max_streams {max_streams} must divide over "
+                             f"the {n} devices")
+        self.n = max_streams
+        self.per = max_streams // n
+        self.engines = [StreamingEngine(model, params, self.per, dtype,
+                                        kv_dtype, device=d,
+                                        cuda_graph=cuda_graph)
+                        for d in devices]
+        self.device = self.engines[0].device
+
+    def _route(self, slot: int):
+        if not 0 <= slot < self.n:
+            raise IndexError(f"slot {slot} out of range")
+        return self.engines[slot // self.per], slot % self.per
+
+    def add_stream(self, slot: int, embedding) -> None:
+        eng, s = self._route(slot)
+        eng.add_stream(s, embedding)
+
+    def remove_stream(self, slot: int) -> None:
+        eng, s = self._route(slot)
+        eng.remove_stream(s)
+
+    @property
+    def active(self) -> np.ndarray:
+        return np.concatenate([e.active for e in self.engines])
+
+    @property
+    def primed(self) -> np.ndarray:
+        return np.concatenate([e.primed for e in self.engines])
+
+    def _slices(self, chunks) -> list:
+        return [chunks[i * self.per:(i + 1) * self.per]
+                for i in range(len(self.engines))]
+
+    @torch.no_grad()
+    def step(self, chunks) -> torch.Tensor:
+        """chunks: [max_streams, n_mics, chunk]. Returns the separated
+        audio of every stream [max_streams, n_srcs, chunk] on the first
+        engine's device."""
+        ys = [e.step(c) for e, c in zip(self.engines, self._slices(chunks))]
+        return torch.cat([y.to(self.device) for y in ys])
+
+    @torch.no_grad()
+    def step_pipelined(self, chunks, depth: int = 4):
+        """Throughput mode (`StreamingEngine.step_pipelined` on every
+        engine): the host result [max_streams, n_srcs, chunk] of the step
+        `depth` calls ago, None until the pipelines fill."""
+        ys = [e.step_pipelined(c, depth)
+              for e, c in zip(self.engines, self._slices(chunks))]
+        return None if ys[0] is None else np.concatenate(ys)
+
+    def drain(self) -> list:
+        """Every output still in flight, in order, as host arrays."""
+        return [np.concatenate(ys) for ys in
+                zip(*(e.drain() for e in self.engines))]
 
 
 def _leaves(state):

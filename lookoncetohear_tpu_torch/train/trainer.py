@@ -1,5 +1,5 @@
 """The training loop (counterpart of
-`lookoncetohear_tpu/train/trainer.py`), on one device.
+`lookoncetohear_tpu/train/trainer.py`), on one device a process.
 
 Each step runs the task's loss on a batch moved to the device, its
 backward (on the card every LSTM recurrence forward and backward is
@@ -10,8 +10,21 @@ optimizer's `param_groups` after each epoch's validation. Checkpoints
 are npz files, last + top-5 on the task's monitor
 (`train/checkpoint.py`). A config's `pl_logger` (the embedding-table
 logger) gets the task's `log_embeddings` tables of every 5th evaluation
-batch and writes them per split. The JAX package's data mesh and
-multi-host paths have no counterpart here.
+batch and writes them per split.
+
+In a process group (`parallel/distributed.py`; torchrun or the
+`LOOKONCE_*` variables) each rank drives one device. Above one rank the
+task's model is wrapped in `DistributedDataParallel`, which averages
+the gradients over the ranks, so a step is the step of
+the global batch (each rank's loader batch is the config's batch over
+the world size, from its own shard of the epoch's permutation). The
+ranks agree on each epoch's batch count (the minimum for training, the
+maximum for evaluation, where a rank whose shard ran out feeds masked
+filler); the training metrics are averaged and the evaluation sums
+reduced, weighted by their real row counts. Only rank 0 writes
+metrics, checkpoints and tables, and the ranks wait for each
+checkpoint. The `--prerender` cache is written by rank 0 while the
+others wait.
 """
 
 from __future__ import annotations
@@ -24,9 +37,12 @@ import time
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
-from lookoncetohear_tpu_torch import resolve_device, utils
+from lookoncetohear_tpu_torch import utils
 from lookoncetohear_tpu_torch.data.loader import DataLoader, stop_workers
+from lookoncetohear_tpu_torch.parallel import distributed
+from lookoncetohear_tpu_torch.parallel.mesh import rank_device
 from lookoncetohear_tpu_torch.train import npz_ckpt
 from lookoncetohear_tpu_torch.train.checkpoint import CheckpointManager
 from lookoncetohear_tpu_torch.weights import load_checkpoint
@@ -37,13 +53,16 @@ ADAM_EPS = 1e-8
 
 
 class MetricsLogger:
-    """JSON lines in run_dir/metrics.jsonl, echoed to the log."""
+    """JSON lines in run_dir/metrics.jsonl, echoed to the log; rank 0
+    only."""
 
     def __init__(self, run_dir: str) -> None:
         os.makedirs(run_dir, exist_ok=True)
         self.path = os.path.join(run_dir, "metrics.jsonl")
 
     def log(self, record: dict) -> None:
+        if not distributed.is_primary():
+            return
         record = {k: (float(v) if isinstance(v, (int, float, np.floating,
                                                  torch.Tensor)) else v)
                   for k, v in record.items()}
@@ -76,6 +95,24 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
+class _DDP(DistributedDataParallel):
+    """DDP that answers for the wrapped model's attributes and methods
+    too (`_shifts_to_indices`, ...), so a task uses it as its model."""
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            return getattr(self.module, name)
+
+
+def ddp_wrap(model: torch.nn.Module, device: torch.device) -> _DDP:
+    """`model` in DDP on `device` (a rank's one device); its buffers
+    (windows, masks) are constants, so none is broadcast."""
+    return _DDP(model, broadcast_buffers=False,
+                device_ids=None if device.type == "cpu" else [device])
+
+
 class Trainer:
     def __init__(self, task, run_dir: str, epochs: int = 100,
                  grad_clip: float | None = None,
@@ -91,8 +128,11 @@ class Trainer:
         self.epochs = epochs
         self.grad_clip = grad_clip
         self.limit_batches = limit_batches
-        self.device = resolve_device(device)
+        self.device = rank_device(device)
         self.model = task.model.to(self.device)
+        self.world = distributed.world_size()
+        if self.world > 1:
+            task.model = ddp_wrap(self.model, self.device)
         os.makedirs(run_dir, exist_ok=True)
         self.logger = MetricsLogger(run_dir)
         self.ckpts = CheckpointManager(
@@ -135,8 +175,14 @@ class Trainer:
         """Yield (device batch, number of real rows). With pad_to (eval),
         a ragged batch is padded to pad_to rows by repeating its last
         row, and `_mask` marks the real ones, so no sample is dropped
-        and the masked means leave the padding out."""
-        for batch in dl.epoch_batches(self._n_batches(dl)):
+        and the masked means leave the padding out. In a process group
+        every rank yields the agreed number of batches: a rank whose
+        shard ran out repeats its last evaluation batch with every row
+        masked out."""
+        n_iters = distributed.agree_count(
+            self._n_batches(dl), "max" if pad_to is not None else "min")
+        last = None
+        for batch in dl.epoch_batches(n_iters):
             db = self.task.device_batch(batch, train=pad_to is None)
             sizes = {v.shape[0] for v in db.values()
                      if isinstance(v, np.ndarray) and v.ndim > 0}
@@ -153,7 +199,16 @@ class Trainer:
                       if isinstance(v, np.ndarray) and v.ndim > 0 else v
                       for k, v in db.items()}
                 db["_mask"] = mask
+                last = db
             yield to_device(db, self.device), b
+            n_iters -= 1
+        for _ in range(n_iters):
+            if last is None:
+                raise RuntimeError("this rank has no evaluation batch to "
+                                   "repeat: the split is smaller than the "
+                                   "number of processes")
+            yield to_device(dict(last, _mask=np.zeros_like(last["_mask"])),
+                            self.device), 0
 
     # -- state ---------------------------------------------------------------
 
@@ -186,11 +241,13 @@ class Trainer:
     @torch.no_grad()
     def _run_eval(self, dl: DataLoader, epoch: int, split: str = "val"):
         """Sample-weighted means over the split: each batch's masked
-        means weighted by its number of real rows."""
+        means weighted by its number of real rows, summed over the
+        ranks. Tables are kept in a single process only, as in the JAX
+        package."""
         sums: dict = {}
         total = 0
         tables = self.table_logger is not None and hasattr(
-            self.task, "log_embeddings")
+            self.task, "log_embeddings") and self.world == 1
         for i, (batch, n) in enumerate(
                 self._device_batches(dl, pad_to=dl.batch_size)):
             _, metrics = self.task.loss_and_metrics(batch, epoch)
@@ -202,9 +259,13 @@ class Trainer:
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * n
             total += n
-        if self.table_logger is not None:
+        keys = sorted(sums)
+        *values, total = distributed.sum_over_ranks(
+            [sums[k] for k in keys] + [total])
+        if self.table_logger is not None and distributed.is_primary():
             self.table_logger.flush(self.run_dir, epoch, split)
-        return {f"{split}/{k}": v / max(total, 1) for k, v in sums.items()}
+        return {f"{split}/{k}": v / max(total, 1)
+                for k, v in zip(keys, values)}
 
     def fit(self, train_dl: DataLoader, val_dl: DataLoader,
             resume: bool = False, ckpt_path: str | None = None):
@@ -240,8 +301,11 @@ class Trainer:
                 step += 1
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
-            record = {f"train/{k}": float(v) / max(n_batches, 1)
-                      for k, v in sums.items()}
+            keys = sorted(sums)
+            means = distributed.sum_over_ranks(
+                [float(sums[k]) / max(n_batches, 1) for k in keys])
+            record = {f"train/{k}": v / self.world
+                      for k, v in zip(keys, means)}
             self.model.eval()
             record.update(self._run_eval(val_dl, epoch, "val"))
             record.update(epoch=epoch, step=step,
@@ -252,11 +316,14 @@ class Trainer:
             if self.scheduler is not None and "val/loss" in record:
                 self.set_lr(self.scheduler.step(record["val/loss"]))
 
-            state = self.full_state(epoch, step)
-            self.ckpts.save_last(self.model, state, epoch, step)
-            mon = record.get(self.task.monitor)
-            if mon is not None:
-                self.ckpts.save_best(self.model, state, mon, epoch, step)
+            if distributed.is_primary():
+                state = self.full_state(epoch, step)
+                self.ckpts.save_last(self.model, state, epoch, step)
+                mon = record.get(self.task.monitor)
+                if mon is not None:
+                    self.ckpts.save_best(self.model, state, mon, epoch,
+                                         step)
+            distributed.barrier()
         return self.model
 
     def test(self, test_dl: DataLoader, ckpt_path: str | None = None) -> dict:
@@ -282,14 +349,25 @@ def build_task(hparams, seed: int = 42):
             **hparams.pl_module_args)
 
 
+def prerender_dir(args, hparams) -> str | None:
+    """The render-ahead cache's directory: `--prerender`, else the
+    config's `prerender_dir`, else `LOOKONCE_PRERENDER`, else None."""
+    return (getattr(args, "prerender", None)
+            or getattr(hparams, "prerender_dir", None)
+            or os.environ.get("LOOKONCE_PRERENDER"))
+
+
 def main(args, hparams) -> None:
-    """The JAX package's `train.trainer.main` control flow on one
-    device: the global `random` and `np.random` seeded with 42 (the
-    training datasets draw from them when rendered in this process),
-    task, `pl_logger` and trainer from the config, loaders of the
-    config's datasets, then `fit` or (`--test`) `test`. TF32 is off
+    """The JAX package's `train.trainer.main` control flow: the global
+    `random` and `np.random` seeded with 42 (the training datasets draw
+    from them when rendered in this process), task, `pl_logger` and
+    trainer from the config, loaders of the config's datasets (each
+    rank's batch the config's over the world size), then `fit` or
+    (`--test`) `test`. With a prerender directory each split is
+    rendered there once (`data/prep/prerender.py`, by rank 0 with the
+    config's workers, the others waiting) and read from it. TF32 is off
     throughout, as in the eval CLI."""
-    device = resolve_device(getattr(args, "device", None))
+    device = rank_device(getattr(args, "device", None))
     random.seed(42)
     np.random.seed(42)
     task = build_task(hparams)
@@ -301,13 +379,25 @@ def main(args, hparams) -> None:
                       limit_batches=args.frac, device=device,
                       table_logger=table_logger)
     num_workers = min(getattr(hparams, "num_workers", 4), os.cpu_count())
+    cache = prerender_dir(args, hparams)
 
     def make_dl(which, batch_size, shuffle):
         ds = utils.import_attr(getattr(hparams, f"{which}_dataset"))(
             **getattr(hparams, f"{which}_data_args"))
+        if cache:
+            from lookoncetohear_tpu_torch.data.prep.prerender import (
+                PrerenderedDataset, render_split)
+            out = os.path.join(cache, which)
+            if distributed.is_primary():
+                t0 = time.time()
+                render_split(ds, out, num_workers=num_workers)
+                logging.info("prerender %s -> %s (%.1f s)", which, out,
+                             time.time() - t0)
+            distributed.barrier()
+            ds = PrerenderedDataset(out)
         # val/test keep the ragged tail, padded and masked by the eval
-        return DataLoader(ds, batch_size, shuffle=shuffle, seed=42,
-                          num_workers=num_workers,
+        return DataLoader(ds, max(1, batch_size // trainer.world),
+                          shuffle=shuffle, seed=42, num_workers=num_workers,
                           drop_last=(which == "train"))
 
     try:

@@ -4,8 +4,16 @@
         --run_dir runs/port_tsh [--test|--resume|--ckpt PATH|--frac F|--epochs N] \\
         [--device cpu]
 
-Runs on the card unless `--device cpu`. The JAX CLI's `--prerender`
-(a render-ahead cache of the splits) has no counterpart and is refused.
+Runs on the card unless `--device cpu`. `--prerender DIR` (or the
+config key `prerender_dir`, or `LOOKONCE_PRERENDER`) renders each split
+once into DIR and trains from there (`data/prep/prerender.py`). Under
+torchrun with `LOOKONCE_DIST=auto`, or with `LOOKONCE_COORDINATOR`,
+`LOOKONCE_NUM_PROCESSES` and `LOOKONCE_PROCESS_ID` set, every process
+joins one process group, one device each, and above one process the
+model trains under DDP (`parallel/distributed.py`):
+
+    LOOKONCE_DIST=auto torchrun --nproc_per_node 4 \
+        -m lookoncetohear_tpu_torch.trainer --config ... --run_dir ...
 """
 
 from __future__ import annotations
@@ -14,11 +22,11 @@ import argparse
 import logging
 import os
 
-from lookoncetohear_tpu_torch import utils
-from lookoncetohear_tpu_torch.train.trainer import main
+import torch
 
-PRERENDER_REFUSED = ("--prerender (the render-ahead cache of the splits) "
-                     "is not ported")
+from lookoncetohear_tpu_torch import utils
+from lookoncetohear_tpu_torch.parallel.distributed import maybe_initialize
+from lookoncetohear_tpu_torch.train.trainer import main
 
 
 def parse_args(argv=None):
@@ -38,14 +46,15 @@ def parse_args(argv=None):
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain versions of the kernels)")
     p.add_argument("--prerender", type=str, default=None,
-                   help="refused: " + PRERENDER_REFUSED)
+                   help="directory of a render-ahead cache: each split is "
+                        "rendered there once (a process pool) and epochs "
+                        "read its npz shards. Also the config key "
+                        "'prerender_dir' or the variable LOOKONCE_PRERENDER")
     return p.parse_args(argv)
 
 
 def run(argv=None) -> None:
     args = parse_args(argv)
-    if args.prerender is not None:
-        raise ValueError(PRERENDER_REFUSED)
     # run-dir collision guard
     last = os.path.join(args.run_dir, "last.ckpt")
     if os.path.exists(last) and not (args.resume or args.test or args.ckpt):
@@ -55,7 +64,13 @@ def run(argv=None) -> None:
     hparams = utils.Params(args.config)
     if args.epochs:
         hparams.epochs = args.epochs
-    main(args, hparams)
+    # join the process group the environment asks for (no-op otherwise)
+    joined = maybe_initialize(args.device)
+    try:
+        main(args, hparams)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

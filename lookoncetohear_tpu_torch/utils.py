@@ -1,6 +1,7 @@
 """Config utilities (counterpart of `lookoncetohear_tpu/utils.py`): the
 JSON -> attribute-bag `Params`, and `import_attr`, which maps the
-dotted paths the configs name onto the port's classes.
+dotted paths the configs name onto the port's classes, and
+`get_run_id`.
 
 The configs name the JAX package's classes
 (`lookoncetohear_tpu.models.net.Net`, ...) or, in the reference's
@@ -16,6 +17,8 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import os
+import uuid
 
 import torch
 
@@ -34,6 +37,9 @@ _PORTED = frozenset({
     "data.dataset_variants.MixLibriSpeechDM",
     "data.dataset_variants.SpeechSeparationDataset",
     "data.dataset_variants.OracleMixLibriSpeech",
+    "data.dataset_variants.MixLibriSpeechMotion",
+    "data.prep.prerender",
+    "data.prep.prerender.PrerenderedDataset",
     "train.tasks.TSETask",
     "train.tasks.EmbedTask",
     "train.tasks.SeparationTask",
@@ -79,16 +85,21 @@ _COMPAT_REGISTRY = {
 
 
 def import_attr(import_path: str):
-    """The port's class for a config's dotted path: a reference `src.*`
-    path, or a path under the JAX package's name or the port's."""
+    """The port's class (or module) for a config's dotted path: a
+    reference `src.*` path, or a path under the JAX package's name or
+    the port's."""
     rel = _COMPAT_REGISTRY.get(import_path)
     if rel is None:
         for pkg in (_JAX_PACKAGE, _PORT_PACKAGE):
             if import_path.startswith(pkg):
                 rel = import_path[len(pkg):]
     if rel in _PORTED:
-        module, attr = (_PORT_PACKAGE + rel).rsplit(".", 1)
-        return getattr(importlib.import_module(module), attr)
+        full = _PORT_PACKAGE + rel
+        module, attr = full.rsplit(".", 1)
+        mod = importlib.import_module(module)
+        # a submodule is an attribute of its package only once imported
+        return getattr(mod, attr) if hasattr(mod, attr) \
+            else importlib.import_module(full)
     target = f" (the JAX package's {_JAX_PACKAGE}{rel})" \
         if import_path in _COMPAT_REGISTRY else ""
     raise ValueError(
@@ -104,6 +115,20 @@ class Params:
         with open(json_path) as f:
             params = json.load(f)
         self.__dict__.update(params)
+
+
+def get_run_id(run_dir: str | None = None) -> str:
+    """A unique run id, kept in run_dir/run_id.txt so that a resumed run
+    keeps its id (a fresh one each call without run_dir)."""
+    if run_dir is None:
+        return uuid.uuid4().hex[:8]
+    id_file = os.path.join(run_dir, "run_id.txt")
+    if not os.path.exists(id_file):
+        os.makedirs(run_dir, exist_ok=True)
+        with open(id_file, "w") as f:
+            f.write(uuid.uuid4().hex[:8])
+    with open(id_file) as f:
+        return f.read().strip()
 
 
 @contextlib.contextmanager

@@ -267,13 +267,22 @@ def test_spatializers_are_the_jax_packages(corpus, name):
                 same(tuple(got), tuple(want), f"{name} {dset} {seed} {f2f}")
 
 
-def test_motion_and_sofa_gates():
-    for kw in (dict(hrtf_type="MultiCh", use_motion=True),
-               dict(hrtf_type="CIPIC_MOTION")):
-        with pytest.raises(NotImplementedError, match="moving sources"):
-            tds.make_simulator(hrtf_list=None, sr=SR, dset="val", **kw)
+def test_motion_and_sofa_gates(corpus):
+    """The motion branches build the port's own moving-source simulator
+    (renders: tests/test_torch_motion.py); an unknown type raises."""
+    from lookoncetohear_tpu_torch.data.motion import CIPICMotionSimulator
     with pytest.raises(NotImplementedError, match="nope"):
         tds.make_simulator("nope", None, SR, "val")
+    if corpus["cipic"] is None:          # the SOFA fixtures need h5py
+        pytest.importorskip("h5py")
+    multi = [corpus["cipic"], corpus["rrbrir"], corpus["ash"],
+             corpus["catt"]]
+    for kw, lists in ((dict(hrtf_type="MultiCh", use_motion=True), multi),
+                      (dict(hrtf_type="CIPIC_MOTION"), corpus["cipic"])):
+        sim = tds.make_simulator(hrtf_list=lists, sr=SR, dset="val", **kw)
+        if kw["hrtf_type"] == "MultiCh":
+            sim = sim.simulators[0]
+        assert type(sim) is CIPICMotionSimulator
 
 
 # ---- datasets ---------------------------------------------------------------
@@ -387,12 +396,10 @@ def test_the_configs_dataset_paths_resolve_to_the_port():
     assert "src.datasets.MixLibriSpeechNoisyEnrollNorm." \
         "MixLibriSpeechNoisyEnroll" in seen
     for p in jutils._COMPAT_REGISTRY:
+        assert tutils.import_attr(p).__name__ == \
+            jutils.import_attr(p).__name__, p
         if "Motion" in p:
-            with pytest.raises(ValueError, match="MixLibriSpeechMotion"):
-                tutils.import_attr(p)
-        else:
-            assert tutils.import_attr(p).__name__ == \
-                jutils.import_attr(p).__name__, p
+            assert tutils.import_attr(p) is tvar.MixLibriSpeechMotion
 
 
 # ---- prep CLIs -------------------------------------------------------------

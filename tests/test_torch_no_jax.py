@@ -5,6 +5,7 @@ blocked from importing. chip_smoke.py reports no result without a card
 or without the package beside it."""
 
 import ast
+import os
 import pathlib
 import shutil
 import subprocess
@@ -73,6 +74,58 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# the modules that port the rest of the JAX package: the render-ahead
+# cache, moving sources, process groups, the rank's device, profiling,
+# the reference-checkpoint converter, the launcher and the demo
+NEW_MODULES = ["data.prep.prerender", "data.motion", "parallel.distributed",
+               "parallel.mesh", "profiling", "convert", "launch",
+               "stream_demo"]
+
+
+def test_new_modules_run_with_jax_blocked(tmp_path):
+    """Each module imports, and its pure-host path runs (a moving-source
+    render through the native library, a cache round trip, a FLOP
+    count, the launcher's script), with JAX unimportable."""
+    code = f"""
+import sys
+for m in ("jax", "jaxlib", "flax", "optax", "lookoncetohear_tpu"):
+    sys.modules[m] = None
+import importlib, os
+import numpy as np, torch
+mods = {{n: importlib.import_module("lookoncetohear_tpu_torch." + n)
+        for n in {NEW_MODULES!r}}}
+sim = mods["data.motion"].MotionSimulator(16000)
+irs = np.zeros((2, 2, 8), np.float32); irs[:, :, 0] = 1
+sim.set_hrtf_arrays(irs, np.eye(3, dtype=np.float32)[:2])
+sim.add_source(np.ones(800, np.float32), np.ones((3, 3), np.float32))
+assert sim.simulate().shape == (1, 2, 800)
+pre = mods["data.prep.prerender"]
+class DS:
+    def __len__(self): return 2
+    def __getitem__(self, i):
+        return {{"mixture": np.full((2, 4), i, np.float32)}}, {{}}
+pre.render_split(DS(), {str(tmp_path)!r})
+assert pre.PrerenderedDataset({str(tmp_path)!r})[1][0]["mixture"][0, 0] == 1
+flops = mods["profiling"].cost_analysis(torch.mm, torch.ones(2, 3),
+                                        torch.ones(3, 4))["flops"]
+assert flops == 48, flops
+assert not mods["parallel.distributed"].maybe_initialize("cpu")
+assert not any(m.startswith(("jax", "flax")) for m in sys.modules
+               if sys.modules[m] is not None)
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LOOKONCE_")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    files = {str(p.relative_to(ROOT / "lookoncetohear_tpu_torch"))
+             for p in FILES if "lookoncetohear_tpu_torch" in p.parts}
+    for n in NEW_MODULES:
+        assert n.replace(".", "/") + ".py" in files, n
 
 
 def _smoke(cwd):
