@@ -82,6 +82,11 @@ set made here, `MixLibriSpeechMotion` over SOFA files where h5py
 imports, TSE training steps on the batch), `SeparationTask` (the offline
 separator with 2-source PIT) on the card against the CPU and through the
 CLI, and the loss registry on the card.
+Then the reference's default `Net()` (6 blocks, H=128, no attention,
+seeded weights: `default_net_phase`), on the H=128 kernels of
+`csrc/bilstm_scan.cu`: both held to their plain versions, the engine
+on the GPU against the CPU, as a CUDA graph against eager, the full
+forward against the CPU and the streamed engine, and each timed.
 The rest of the JAX package, each through its entry point: the motion
 renderer's build (after the kernels'); `MultiDeviceEngine`, two graph
 engines of 32 streams on the one card against one of 64, and
@@ -277,9 +282,29 @@ DDP_STEPS = 6                 # DDP against the unwrapped model, one batch
 # floor) per tensor: a sum over one rank is exact, so only the card's own
 # spread between two backward passes (atomics) is left
 TOL_DDP_GRAD = 1e-4
-# counter name -> the kernel's name in a profiler trace
+# the reference's default Net (`Net()`: chunk 160 + pad 120, F=141, 6
+# blocks, H=128, no attention), seeded random weights: the 64-stream
+# engine over DEFAULT_STEPS 10 ms steps, the full forward on the CPU
+# against the card over DEFAULT_CPU_SECONDS and timed over
+# DEFAULT_FULL_SECONDS
+DEFAULT_STREAMS = 64
+DEFAULT_STEPS = 12
+DEFAULT_CHUNK_MS = 10.0       # 160 samples at 16 kHz
+DEFAULT_CPU_SECONDS = 2.0
+DEFAULT_FULL_SECONDS = 5.0
+# its scans at H=128: B2 [141, 2, rows] at the step's 64 streams, the
+# full forward's 500 frames of 5 s and a row count no tile divides; the
+# training forward (T, D, N, from a carried state) at the full forward's
+# inter-time scan and over both directions
+H128_SCANS = {"serving": 64, "full_forward": 500, "tail": 13}
+H128_TRAIN = {"full_forward_inter": (500, 1, 141, True),
+              "both_directions": (141, 2, 64, False)}
+# counter name -> the kernel's name in a profiler trace (or the parts
+# that name must all hold: the H=128 kernels' names carry their tile)
 TRACE_NAMES = {
     "bilstm_scan": "bilstm_scan_kernel<64, false>",
+    "bilstm_scan_h128": ("bilstm_h128_kernel<", ", false>"),
+    "bilstm_scan_fwd_train_h128": ("bilstm_h128_kernel<", ", true>"),
     "bilstm_scan_fwd_train": "bilstm_train_fwd_kernel",
     "bilstm_scan_bwd": "bilstm_train_bwd_kernel",
     "ring_int8_step": "ring_int8_step_kernel<__nv_bfloat16>",
@@ -287,14 +312,22 @@ TRACE_NAMES = {
     "attn_step_bf16": "attn_step_kernel<__nv_bfloat16, __nv_bfloat16>",
     "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>"}
 PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_train_fwd_kernel",
-                "bilstm_train_bwd_kernel", "ring_int8_step_kernel",
-                "attn_step_kernel")
+                "bilstm_train_bwd_kernel", "bilstm_h128_kernel",
+                "ring_int8_step_kernel", "attn_step_kernel")
 # traces of a profile at most: eager-engine traces holding 29 of 10
 # steps' 30 B2 launches came back in two runs of this script
 TRACE_TRIES = 3
 # head-major rows of the float ring at 64 streams (64 x 4 heads); odd_dk
 # a K width whose rows start 1- or 2-byte aligned
 ATTN = dict(rows=STREAMS * 4, w1=49, dk=97 * 6, dv=97 * 16, odd_dk=525)
+
+
+def traced(name: str, counter: str) -> bool:
+    """Whether a profiler event of this name is a launch of the kernel
+    whose wrapper counts `counter` (TRACE_NAMES)."""
+    parts = TRACE_NAMES[counter]
+    return all(p in name for p in ((parts,) if isinstance(parts, str)
+                                   else parts))
 
 
 def log(msg: str) -> None:
@@ -353,8 +386,7 @@ def profile_steps(eng, xs, torch, expect, absent=(),
                 if ev.device_type == torch.autograd.DeviceType.CUDA]
         if not kern:
             raise AssertionError("profiler: no device events recorded")
-        ran = {k: sum(TRACE_NAMES[k] in ev.name for ev in kern)
-               for k in expect}
+        ran = {k: sum(traced(ev.name, k) for ev in kern) for k in expect}
         other = sum(any(p in ev.name for p in PORT_KERNELS)
                     for ev in kern) - sum(ran.values())
         if other or any(ran[k] > want[k] for k in want):
@@ -1057,7 +1089,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, reserved "
             f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB of the "
             f"card's {total / gib:.2f} GiB [{smi}]")
-    phase("path: SeparationTask", 140, separation, grad=True)
+    phase("path: SeparationTask", 125, separation, grad=True)
 
     def losses_card():
         g = np.random.default_rng(5)
@@ -1099,6 +1131,375 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             "relative)")
     phase("losses on the card", 10, losses_card)
     tmp.cleanup()
+
+
+def default_net_phase(torch, smi, res, launch_counts, reset_counts,
+                      read_counts, expect_counts):
+    """The reference's default `Net` (`Net()`: chunk 160 + pad 120, F =
+    141 bins, 6 blocks, H = 128, no attention) on the card, its weights
+    a seeded init of the port (no checkpoint has this shape); every
+    LSTM recurrence on the H = 128 kernels of `csrc/bilstm_scan.cu`:
+      * what ptxas reported for them, and each tile's build and the
+        clusters the card holds at once;
+      * B2 at H = 128 against its plain version at the 64-stream step's
+        [141, 2, 64, 512], the full forward's [141, 2, 500, 512] and a
+        tail [141, 2, 13, 512] (TOL_LSTM); the training forward at the
+        full forward's inter-time scan (N=141, T=500, D=1) from (h0, c0)
+        and both directions (N=64, T=141, D=2) from zero, each saving
+        every c and not (the same y and c_T bit for bit), at
+        TOL_LSTM_LONG of the peak (over 97 steps);
+      * 4 streams in float32, the GPU engine against the CPU engine,
+        each step from the same state, TOL_PATH of the peak;
+      * 64 streams, the CUDA-graph engine against the eager one at
+        float32 and bf16, output and every state leaf bit for bit after
+        every step, through the masked graph (no slot primed at step 0,
+        an `add_stream` at step 4, slot 9 removed from step 7); the
+        eager steps launch 6 B2 a step and no other kernel of the port;
+      * the full forward (`Net.forward`) on the GPU against the CPU over
+        DEFAULT_CPU_SECONDS (6 + 6 launches a call, nothing else), and
+        the streamed graph engine against the full forward on the card;
+      * times by CUDA events: each kernel, its plain version and cuDNN's
+        `nn.LSTM(hidden_size=128)` over the same rows and steps (input
+        width 64); the engine step at float32 and bf16, graph and eager
+        (RTF of the 10 ms chunk), the graph step's profile; the full
+        forward over DEFAULT_FULL_SECONDS."""
+    import ctypes
+    from lookoncetohear_tpu_torch import _build
+    from lookoncetohear_tpu_torch.models.net import Net
+    from lookoncetohear_tpu_torch.ops.bilstm_scan import (
+        H128_TILE_COST, bilstm_scan_cuda, bilstm_scan_reference,
+        bilstm_scan_train_cuda, bilstm_train_reference)
+    from lookoncetohear_tpu_torch.serve.engine import (WARMUP_STEPS,
+                                                       StreamingEngine)
+    from lookoncetohear_tpu_torch.timing import device_ms, wall_ms
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    lib = _build.load_library()
+
+    def rnd(*shape, k=0.5):
+        return torch.randn(shape, generator=g, device=dev) * k
+
+    # the build: what ptxas said of each H=128 kernel (its entry line,
+    # then its properties, stack and spills, registers)
+    lines = _build.last_build.get("ptxas", [])
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "bilstm_h128" in line:
+            for shown in lines[i:i + 4]:
+                log(f"  {shown}")
+    for kname, train in (("B2", 0), ("training forward", 1)):
+        for r in H128_TILE_COST:
+            out = (ctypes.c_int * 5)()
+            _build.check(lib.bilstm_h128_info(r, train, out),
+                         "bilstm_h128_info")
+            log(f"  H=128 {kname}, tile of {r} rows: {out[0]} threads, "
+                f"{out[2]} registers, {out[3]} B spilled, {out[1]} B "
+                f"shared memory, {out[4]} clusters of 2 CTAs at once")
+
+    # the kernels against their plain versions
+    errs = {"bilstm_scan_h128": 0.0, "bilstm_scan_fwd_train_h128": 0.0}
+    scans = {}
+    for key, b in H128_SCANS.items():
+        xp, w_hh = rnd(141, 2, b, 512), rnd(2, 128, 512, k=0.2)
+        ys, c_t = bilstm_scan_cuda(xp, w_hh)
+        rys, rc = bilstm_scan_reference(xp, w_hh)
+        torch.cuda.synchronize()
+        err = max((ys - rys).abs().max().item(),
+                  (c_t - rc).abs().max().item())
+        log(f"  B2 at H=128 {list(xp.shape)}: max|kernel - plain| = "
+            f"{err:.3e} (tolerance {TOL_LSTM})")
+        if not err <= TOL_LSTM:
+            raise AssertionError(f"B2 at H=128 differs: {err}")
+        errs["bilstm_scan_h128"] = max(errs["bilstm_scan_h128"], err)
+        scans[key] = (xp, w_hh)
+    for key, (t_, nd, n, carried) in H128_TRAIN.items():
+        xp, w_hh = rnd(n, t_, nd * 512), rnd(nd, 128, 512, k=0.2)
+        h0, c0 = (rnd(nd, n, 128), rnd(nd, n, 128)) if carried \
+            else (None, None)
+        got = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
+        lean = bilstm_scan_train_cuda(xp, w_hh, h0, c0, save_cs=False)
+        want = bilstm_train_reference(xp, w_hh, torch.float32, h0, c0,
+                                      with_cs=True)
+        torch.cuda.synchronize()
+        err = max((a - e).abs().max().item() / max(1.0, e.abs().max().item())
+                  for a, e in zip(got, want))
+        log(f"  training forward at H=128 (T={t_}, D={nd}, N={n}"
+            f"{', from h0/c0' if carried else ''}): max|kernel - plain| / "
+            f"max(1, peak) over y, c_T, cs = {err:.3e} (tolerance "
+            f"{TOL_LSTM_LONG}); without cs y and c_T bit for bit")
+        if not (err <= TOL_LSTM_LONG and lean[2] is None
+                and torch.equal(lean[0], got[0])
+                and torch.equal(lean[1], got[1])):
+            raise AssertionError(f"training forward at H=128 differs: {err}")
+        errs["bilstm_scan_fwd_train_h128"] = max(
+            errs["bilstm_scan_fwd_train_h128"], err)
+        scans[key] = (xp, w_hh, h0, c0)
+    for k, v in errs.items():
+        res[k] = dict(max_abs_err=v)
+
+    # the model: a seeded init, the same weights on the card and the CPU
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(14)
+        net_cpu = Net(device="cpu").eval()
+    sd = net_cpu.state_dict()
+    net_gpu = Net()
+    net_gpu.load_state_dict(sd)
+    net_gpu.eval()
+    c = net_gpu.stft_chunk_size
+    if (c, net_gpu.nfft, net_gpu.tfgridnet.n_freqs,
+            net_gpu.tfgridnet.n_layers, net_gpu.tfgridnet.lstm_hidden_units,
+            net_gpu.tfgridnet.use_attn) != (160, 280, 141, 6, 128, False):
+        raise AssertionError("Net() is not the reference's default Net")
+    rng = np.random.default_rng(14)
+    emb = rng.standard_normal((DEFAULT_STREAMS, 256)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+
+    def audio(n_streams, n_samples, seed):
+        """Binaural audio: a tone per stream plus noise, the right ear a
+        few samples late."""
+        gg = np.random.default_rng(seed)
+        t = np.arange(n_samples) / 16000.0
+        src = np.sin(2 * np.pi * gg.uniform(120, 400, (n_streams, 1)) * t)
+        x = np.stack([src, np.roll(src, 3, axis=-1)], axis=1) * 0.3
+        return (x + 0.05 * gg.standard_normal(x.shape)).astype(np.float32)
+
+    def chunks(n_streams, n_steps, seed):
+        x = audio(n_streams, n_steps * c, seed)
+        return x.reshape(n_streams, 2, n_steps, c).transpose(2, 0, 1, 3)
+
+    def leaves(eng):
+        yield "input_tail", eng.input_tail
+        for k in ("conv_buf", "deconv_buf", "istft_buf"):
+            yield k, eng.state[k]
+        for i, blk in enumerate(eng.state["blocks"]):
+            for k in sorted(blk):
+                yield f"blocks.{i}.{k}", blk[k]
+
+    # 4 streams, GPU engine vs CPU engine, each step from the same state
+    n, steps = 4, 6
+    engines = [StreamingEngine(net_cpu, sd, max_streams=n, device=d,
+                               cuda_graph=False) for d in ("cuda", "cpu")]
+    for eng in engines:
+        for s in range(n):
+            eng.add_stream(s, emb[s])
+    worst = 0.0
+    reset_counts()
+    for x in chunks(n, steps, 1):
+        for (_, gl), (_, cl) in zip(*map(leaves, engines)):
+            gl.copy_(cl)
+        y_gpu, y_cpu = (eng.step(x).float().cpu().numpy() for eng in engines)
+        peak = float(np.abs(y_cpu).max())
+        err = float(np.abs(y_gpu - y_cpu).max())
+        if not (np.isfinite(y_gpu).all() and err <= TOL_PATH * max(peak,
+                                                                   1e-3)):
+            raise AssertionError(f"GPU vs CPU engine: {err} (peak {peak})")
+        worst = max(worst, err / max(peak, 1e-3))
+        for (name, gl), (_, cl) in zip(*map(leaves, engines)):
+            if float((gl.cpu() - cl).abs().max()) > TOL_STATE * max(
+                    1.0, float(cl.abs().max())):
+                raise AssertionError(f"{name}: GPU state differs")
+    expect_counts(read_counts(), {"bilstm_scan_h128": 6 * steps},
+                  "default Net, GPU engine")
+    if peak == 0.0:
+        raise AssertionError("engine output is all zeros")
+    log(f"  4 streams x {steps} steps, float32, each step from the same "
+        f"state: max|GPU - CPU| / peak = {worst:.3e} (tolerance "
+        f"{TOL_PATH}); state within {TOL_STATE}; launches: "
+        f"bilstm_scan_h128 {6 * steps} (6 blocks a step), nothing else")
+    del engines
+
+    # 64 streams: the graph engine against the eager engine, bit for bit
+    xs = torch.from_numpy(chunks(DEFAULT_STREAMS, DEFAULT_STEPS, 2)).to(dev)
+    graphs = {}
+    for label, dtype in (("float32", torch.float32),
+                         ("bf16", torch.bfloat16)):
+        engs = [StreamingEngine(net_gpu, sd, max_streams=DEFAULT_STREAMS,
+                                dtype=dtype, cuda_graph=gr)
+                for gr in (False, True)]
+        for eng in engs:
+            for s in range(DEFAULT_STREAMS):
+                eng.add_stream(s, emb[s])
+        x = xs.to(dtype)
+        reset_counts()
+        for i in range(DEFAULT_STEPS):
+            for eng in engs:
+                if i == 4:
+                    eng.add_stream(5, emb[6])
+                if i == 7:
+                    eng.remove_stream(9)
+            y_e, y_g = (eng.step(x[i]) for eng in engs)
+            if not (torch.isfinite(y_g).all() and torch.equal(y_g, y_e)):
+                err = (y_g.float() - y_e.float()).abs().max().item()
+                raise AssertionError(f"{label} step {i}: graph output "
+                                     f"differs from eager by up to {err}")
+            for (name, e), (_, gl) in zip(*map(leaves, engs)):
+                if not torch.equal(gl, e):
+                    raise AssertionError(f"{label} step {i}: graph state "
+                                         f"{name} differs from eager")
+        counts = read_counts()
+        per_call = 6 * (DEFAULT_STEPS + 2 * (WARMUP_STEPS + 1))
+        expect_counts(counts, {"bilstm_scan_h128": per_call}, label)
+        if set(engs[1]._graphs) != {False, True}:
+            raise AssertionError("the graph engine did not capture both "
+                                 "graphs")
+        if y_e[:, 0].abs().max().item() == 0.0:
+            raise AssertionError("engine output is all zeros")
+        engs[1].add_stream(9, emb[9])
+        engs[1].step(x[0])
+        graphs[label] = (engs[0], engs[1], x)
+        log(f"  {DEFAULT_STREAMS} streams x {DEFAULT_STEPS} steps, {label}: "
+            f"output and every state leaf of the graph engine bit-identical "
+            f"to the eager engine's after every step; launches: "
+            f"bilstm_scan_h128 {counts['bilstm_scan_h128']} = 6 x "
+            f"({DEFAULT_STEPS} eager steps + 2 graphs x ({WARMUP_STEPS} "
+            f"warm-up steps + 1 capture)), nothing else")
+
+    # the full forward, GPU against CPU, and the streamed engine against it
+    e1 = torch.from_numpy(emb[:1, None])
+    x_cpu = torch.from_numpy(audio(1, int(DEFAULT_CPU_SECONDS * 16000), 3))
+    reset_counts()
+    y_gpu = net_gpu(x_cpu.to(dev), e1.to(dev))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(counts, {"bilstm_scan_h128": 6,
+                           "bilstm_scan_fwd_train_h128": 6}, "full forward")
+    launch_counts["bilstm_scan_fwd_train_h128"] = counts[
+        "bilstm_scan_fwd_train_h128"]
+    y_cpu = net_cpu(x_cpu, e1)
+    peak = float(y_cpu.abs().max())
+    err = float((y_gpu.cpu() - y_cpu).abs().max())
+    if not (tuple(y_gpu.shape) == (1, 2, x_cpu.shape[-1])
+            and torch.isfinite(y_gpu).all() and peak > 0
+            and err <= TOL_PATH * peak):
+        raise AssertionError(f"full forward GPU vs CPU: {err} (peak {peak})")
+    n, n_chunks = 2, 12
+    x = audio(n, n_chunks * c, 4)
+    eng = StreamingEngine(net_gpu, sd, max_streams=n)
+    for s in range(n):
+        eng.add_stream(s, emb[s])
+    streamed = torch.cat([eng.step(x[..., i * c:(i + 1) * c])
+                          for i in range(n_chunks)], -1).cpu()
+    full, _ = net_gpu.predict(torch.from_numpy(x).to(dev),
+                              torch.from_numpy(emb[:n]).to(dev),
+                              net_gpu.init_state(n), pad=False)
+    m = (n_chunks - 1) * c
+    err_s = float((streamed[..., c:] - full.cpu()[..., :m]).abs().max())
+    if not err_s <= TOL_STREAMED:
+        raise AssertionError(f"streamed vs full forward: {err_s}")
+    log(f"  full forward 1 x {DEFAULT_CPU_SECONDS:g} s: max|GPU - CPU| / "
+        f"peak = {err / peak:.3e} (tolerance {TOL_PATH}); launches: "
+        f"bilstm_scan_h128 6, bilstm_scan_fwd_train_h128 6, nothing else; "
+        f"{n} streams x {n_chunks} chunks through the graph engine: "
+        f"max|engine chunk k - full chunk k-1| = {err_s:.3e} (atol "
+        f"{TOL_STREAMED})")
+
+    # times: the kernels beside their plain versions and cuDNN
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+    step_flops = 2 * 128 * 512 + 512          # a row and direction a step
+    for key in H128_SCANS:
+        xp, w_hh = scans[key]
+        b = xp.shape[2]
+        for _ in range(3):
+            bilstm_scan_cuda(xp, w_hh)
+        k_ms = device_ms(lambda i: bilstm_scan_cuda(xp, w_hh), 30)
+        p_ms = wall_ms(lambda i: bilstm_scan_reference(xp, w_hh), 3)
+        lstm = torch.nn.LSTM(64, 128, batch_first=True,
+                             bidirectional=True).to(dev)
+        x_in = rnd(b, 141, 64)
+        for _ in range(3):
+            lstm(x_in)
+        l_ms = device_ms(lambda i: lstm(x_in), 30)
+        b_ms, by = bound(4 * (xp.numel() + w_hh.numel() + 141 * 2 * b * 128
+                              + 2 * b * 128), 141 * 2 * b * step_flops)
+        row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                   bound_by=by)
+        res[f"bilstm_scan_h128_{key}"] = row
+        if key == "serving":
+            res["bilstm_scan_h128"].update(row)
+        log(f"  B2 at H=128 {list(xp.shape)}: kernel {k_ms * 1e3:.1f} us, "
+            f"bound {b_ms * 1e3:.2f} us ({by}), plain {p_ms * 1e3:.1f} us, "
+            f"cuDNN nn.LSTM(64, 128, bidirectional) {l_ms * 1e3:.1f} us "
+            f"[{smi}]")
+    for key, (t_, nd, n, carried) in H128_TRAIN.items():
+        xp, w_hh, h0, c0 = scans[key]
+        fwd = lambda i: bilstm_scan_train_cuda(  # noqa: E731
+            xp, w_hh, h0, c0, save_cs=False)
+        for _ in range(3):
+            fwd(0)
+        k_ms = device_ms(fwd, 20)
+        p_ms = wall_ms(lambda i: bilstm_train_reference(
+            xp, w_hh, torch.float32, h0, c0), 2)
+        lstm = torch.nn.LSTM(64, 128, batch_first=True,
+                             bidirectional=nd == 2).to(dev)
+        x_in = rnd(n, t_, 64)
+        hc = (h0, c0) if carried else None
+        for _ in range(3):
+            lstm(x_in, hc)
+        l_ms = device_ms(lambda i: lstm(x_in, hc), 20)
+        states = (2 if carried else 0) * nd * n * 128
+        b_ms, by = bound(4 * (xp.numel() + w_hh.numel() + states
+                              + t_ * nd * n * 128 + nd * n * 128),
+                         t_ * nd * n * step_flops)
+        row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                   bound_by=by)
+        res[f"bilstm_scan_fwd_train_h128_{key}"] = row
+        if key == "full_forward_inter":
+            res["bilstm_scan_fwd_train_h128"].update(row)
+        log(f"  training forward at H=128 (T={t_}, D={nd}, N={n}), no cs: "
+            f"kernel {k_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({by}), "
+            f"plain {p_ms * 1e3:.1f} us, cuDNN nn.LSTM(64, 128"
+            f"{', bidirectional' if nd == 2 else ''}) {l_ms * 1e3:.1f} us "
+            f"[{smi}]")
+
+    # times: the engine step, graph and eager, and the full forward
+    res["default_net"] = {}
+    for label, (eager, graph, x) in graphs.items():
+        for i in range(5):
+            eager.step(x[i]), graph.step(x[i])
+        reset_counts()
+        e_ms = wall_ms(lambda i: eager.step(x[i % DEFAULT_STEPS]), 20)
+        counts = read_counts()
+        expect_counts(counts, {"bilstm_scan_h128": 6 * 20},
+                      f"default Net {label}, 20 eager steps")
+        if label == "float32":
+            launch_counts["bilstm_scan_h128"] = counts["bilstm_scan_h128"]
+        g_ms = wall_ms(lambda i: graph.step(x[i % DEFAULT_STEPS]), 50)
+        out = dict(eager_step_ms=e_ms, eager_rtf=e_ms / DEFAULT_CHUNK_MS,
+                   graph_step_ms=g_ms, graph_rtf=g_ms / DEFAULT_CHUNK_MS)
+        out.update(graph.benchmark_device(n_short=50, n_long=250,
+                                          repeats=3))
+        reset_counts()
+        out.update(profile_steps(graph, x[:10], torch,
+                                 {"bilstm_scan_h128": 6}))
+        expect_counts(read_counts(), {}, f"default Net {label} replays")
+        res["default_net"][label] = out
+        log(f"  default Net, {DEFAULT_STREAMS} streams, {label}: CUDA graph "
+            f"{g_ms:.3f} ms from call to synchronize (RTF "
+            f"{g_ms / DEFAULT_CHUNK_MS:.4f} of the {DEFAULT_CHUNK_MS:g} ms "
+            f"chunk), benchmark_device {out['device_best_ms']:.3f} ms best "
+            f"(RTF {out['rtf']:.4f}); eager {e_ms:.3f} ms (RTF "
+            f"{e_ms / DEFAULT_CHUNK_MS:.4f}) [{smi}]")
+    x5 = torch.from_numpy(audio(1, int(DEFAULT_FULL_SECONDS * 16000),
+                                5)).to(dev)
+    e5 = torch.from_numpy(emb[:1, None]).to(dev)
+    net_gpu(x5, e5)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(5)]
+    for start, end in ev:
+        torch.cuda.synchronize()
+        start.record()
+        net_gpu(x5, e5)
+        end.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ev]
+    res["default_net"]["full_forward"] = dict(
+        seconds=DEFAULT_FULL_SECONDS, ms=float(np.median(ms)),
+        ms_min=min(ms), ms_max=max(ms))
+    log(f"  default Net.forward, 1 x {DEFAULT_FULL_SECONDS:g} s, float32: "
+        f"{np.median(ms):.2f} ms by CUDA events (median of {len(ms)}, "
+        f"{min(ms):.2f}-{max(ms):.2f}) [{smi}]")
 
 
 def reference_tse(g, D=64, M=2, H=64, F=97, nh=4, S=2, E=256,
@@ -1198,8 +1599,9 @@ def main() -> int:
             VARIANTS, attention_step_cuda, attention_step_reference)
         from lookoncetohear_tpu_torch.ops.bilstm_scan import (
             TRAIN_TILE_COST, bilstm_scan_bwd_cuda, bilstm_scan_cuda,
-            bilstm_scan_reference, bilstm_scan_train_cuda,
-            bilstm_train_backward_reference, bilstm_train_reference,
+            bilstm_scan_h128_cuda, bilstm_scan_reference,
+            bilstm_scan_train_cuda, bilstm_train_backward_reference,
+            bilstm_train_fwd_h128_cuda, bilstm_train_reference,
             scan_weight_grad, tile_rows)
         from lookoncetohear_tpu_torch.ops.lstm import bidir_scan_inputs
         from lookoncetohear_tpu_torch.ops.ring_step import (
@@ -1235,6 +1637,8 @@ def main() -> int:
         bilstm_scan_cuda.launches = 0
         bilstm_scan_train_cuda.launches = 0
         bilstm_scan_bwd_cuda.launches = 0
+        bilstm_scan_h128_cuda.launches = 0
+        bilstm_train_fwd_h128_cuda.launches = 0
         ring_attend_int8_step_cuda.launches = 0
         attention_step_cuda.launches = 0
         for k in attn_names:
@@ -1244,6 +1648,9 @@ def main() -> int:
         return dict(bilstm_scan=bilstm_scan_cuda.launches,
                     bilstm_scan_fwd_train=bilstm_scan_train_cuda.launches,
                     bilstm_scan_bwd=bilstm_scan_bwd_cuda.launches,
+                    bilstm_scan_h128=bilstm_scan_h128_cuda.launches,
+                    bilstm_scan_fwd_train_h128=(
+                        bilstm_train_fwd_h128_cuda.launches),
                     ring_int8_step=ring_attend_int8_step_cuda.launches,
                     **attention_step_cuda.variant_launches)
 
@@ -2915,6 +3322,10 @@ def main() -> int:
                   launch_counts,
                   {name: res[f"train_{name}"]["ms"] for name, *_ in tasks})
 
+    phase("default Net (H=128, no attention)", 50,
+          lambda: default_net_phase(torch, smi, res, launch_counts,
+                                    reset_counts, read_counts, expect_counts))
+
     def convert_phase():
         """Random state_dicts in the reference's key layout (the
         streaming TSE net at the flagship geometry, the enrollment net at
@@ -2996,6 +3407,11 @@ def main() -> int:
                                   "lookoncetohear_tpu/ops/lstm.py:130"),
         "bilstm_scan_bwd": ("bilstm_scan.cu",
                             "lookoncetohear_tpu/ops/lstm.py:130"),
+        # B2 and the inter-time LSTM's forward (lstm_apply) at H=128
+        "bilstm_scan_h128": ("bilstm_scan.cu",
+                             "lookoncetohear_tpu/ops/pallas_lstm.py:59"),
+        "bilstm_scan_fwd_train_h128": ("bilstm_scan.cu",
+                                       "lookoncetohear_tpu/ops/lstm.py:108"),
         "ring_int8_step": ("ring_int8_step.cu", f"{tpu}:334"),
         **{name: ("attn_step.cu", f"{tpu}:{129 if kvdt == torch.int8 else 54}")
            for (_, kvdt), name in VARIANTS.items()},
@@ -3012,6 +3428,10 @@ def main() -> int:
     log(f"full forward: {json.dumps(res['full_forward'])}")
     log(f"engine, CUDA graph: {json.dumps(res['graph'])}")
     log(f"EmbedNet: {json.dumps(res['enroll'])}")
+    log(f"default Net: {json.dumps(res['default_net'])}")
+    for k in [*(f"bilstm_scan_h128_{s}" for s in H128_SCANS),
+              *(f"bilstm_scan_fwd_train_h128_{s}" for s in H128_TRAIN)]:
+        log(f"{k}: {json.dumps(res[k])}")
     log("eval: " + json.dumps({
         m: {k: r[k] for k in ("max_dev", "means", "seconds")}
         for m, r in evals.items()}))

@@ -2,8 +2,9 @@
 `lookoncetohear_tpu/models/net.py`), with the same config field names
 as the JAX package and the reference's `model_params` JSON:
 
-  * `Net`, the streaming separator, and `mod_pad`: `step` (one 8 ms
-    chunk), `predict` and `forward` (the JAX `__call__`: a whole
+  * `Net`, the streaming separator, and `mod_pad`: `step` (one chunk:
+    10 ms at the defaults' 160 samples, 8 ms at the flagship's 128),
+    `predict` and `forward` (the JAX `__call__`: a whole
     utterance, with the optional direction-of-arrival head);
   * `EmbedNet`, the enrollment net (noisy binaural snippet -> d-vector);
   * `OfflineSeparatorNet`, the offline 2-source separator.
@@ -131,7 +132,7 @@ class Net(nn.Module):
 
     @torch.no_grad()
     def step(self, x_chunk, embed, state):
-        """One 8 ms streaming step: x_chunk [B, M, nfft] is the current
+        """One streaming step: x_chunk [B, M, nfft] is the current
         chunk plus lookahead; returns ([B, S, chunk], state). The ring
         leaves of `state` are updated in place."""
         return self.tfgridnet(x_chunk, embed, state)

@@ -17,6 +17,12 @@ plain PyTorch versions.
   `lax.scan` of `lookoncetohear_tpu/ops/lstm.py` (`_lstm_scan`,
   `_chunked_scan`): the TPU kernel has no gradient.
 
+The kernels (`csrc/bilstm_scan.cu`) take H = 64 (a block a row tile)
+and H = 128 (B2 and the training forward: a 2-CTA cluster a row tile,
+W_hh split between the pair; the backward at H = 128 is not written
+yet, so a call at H = 128 that needs a gradient is refused on the
+card). Every other width is refused.
+
 Everything runs in float32 on the card. A wrapper launches its kernel
 for CUDA tensors and uses the plain version only for CPU tensors.
 """
@@ -30,9 +36,10 @@ import torch
 
 from lookoncetohear_tpu_torch import _build
 
-# the hidden width the kernels are instantiated for (B2 keeps W_hh's
-# slices in each thread's registers): the model's H
-KERNEL_HIDDEN = 64
+# the hidden widths the kernels are instantiated for (B2 and the training
+# forward), and the backward's
+KERNEL_WIDTHS = (64, 128)
+BACKWARD_WIDTHS = (64,)
 # rows a block of each training kernel may take, and the relative time
 # of one wave of its blocks (every SM running as many as fit) a step:
 # fitted to `python3 -m lookoncetohear_tpu_torch.scan_sweep` on an H100
@@ -40,6 +47,11 @@ KERNEL_HIDDEN = 64
 # the fastest tile of each kernel at each shape
 TRAIN_TILE_COST = {"fwd": {4: 2.1, 8: 3.75, 16: 6.4},
                    "bwd": {4: 3.1, 8: 5.6, 16: 10.5}}
+# the same for the H = 128 kernels (B2 and the training forward), whose
+# 2-CTA clusters take tiles of R rows: a wave of clusters a step costs
+# 1.2 / 1.7-1.8 / 2.4-2.6 us at R = 2 / 4 / 8 (`scan_sweep` on an H100
+# at the default Net's scans, where these costs pick the fastest tile)
+H128_TILE_COST = {2: 1.0, 4: 1.45, 8: 2.05}
 
 
 def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
@@ -172,11 +184,19 @@ def scan_weight_grad(dxp, y, h0, nd):
     return torch.stack(out)
 
 
-def _check(xp, w_hh, name, g4, **states):
+def check_width(hidden: int, name: str, widths=KERNEL_WIDTHS) -> None:
+    """Raise unless a kernel of `name` is built for the hidden width."""
+    if hidden not in widths:
+        raise ValueError(f"{name} takes "
+                         f"{' or '.join(f'H={h}' for h in widths)}, "
+                         f"not {hidden}")
+
+
+def _check(xp, w_hh, name, g4, widths=KERNEL_WIDTHS, **states):
     """Raise on what the kernels do not take: xp and w_hh float32,
-    contiguous, on one GPU, gate width g4 = 4H with H = KERNEL_HIDDEN;
-    each state (tensor or None, shape) contiguous float32 of its shape
-    on xp's GPU."""
+    contiguous, on one GPU, gate width g4 = 4H with H in `widths`; each
+    state (tensor or None, shape) contiguous float32 of its shape on
+    xp's GPU."""
     if xp.device.type != "cuda" or w_hh.device != xp.device:
         raise ValueError(f"{name} needs its tensors on one GPU")
     for key, (v, shape) in states.items():
@@ -190,8 +210,7 @@ def _check(xp, w_hh, name, g4, **states):
         raise TypeError(f"{name} takes float32 xp and w_hh")
     if not (xp.is_contiguous() and w_hh.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
-    if g4 != 4 * KERNEL_HIDDEN:
-        raise ValueError(f"{name} takes H={KERNEL_HIDDEN}, not {g4 // 4}")
+    check_width(g4 // 4, name, widths)
 
 
 def _ptr(t):
@@ -200,7 +219,9 @@ def _ptr(t):
 
 def bilstm_scan_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
     """Launch B2 on the current stream (no sync). Inference only: it
-    refuses inputs that need a gradient, which it could not give."""
+    refuses inputs that need a gradient, which it could not give. At
+    H = 128 it launches `bilstm_scan_h128_cuda`'s kernel, whose counter
+    counts it; `bilstm_scan_cuda.launches` counts the H = 64 kernel."""
     if torch.is_grad_enabled() and (xp.requires_grad or w_hh.requires_grad):
         raise RuntimeError(
             "bilstm_scan_cuda is inference only and would drop the "
@@ -215,6 +236,8 @@ def bilstm_scan_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
             or tuple(w_hh.shape) != (2, hidden, g4):
         raise ValueError(f"bilstm_scan_cuda: bad shapes xp {tuple(xp.shape)} "
                          f"w_hh {tuple(w_hh.shape)}")
+    if hidden == 128:
+        return bilstm_scan_h128_cuda(xp, w_hh)
     ys = torch.empty((t_len, 2, b, hidden), device=xp.device,
                      dtype=torch.float32)
     c_t = torch.empty((2, b, hidden), device=xp.device, dtype=torch.float32)
@@ -228,6 +251,55 @@ def bilstm_scan_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
 
 
 bilstm_scan_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _h128_facts(device, kernel: str) -> dict:
+    """{R: clusters of the tile the card holds at once} of the H = 128
+    `kernel` ("b2" or "fwd") on the device."""
+    lib = _build.load_library()
+    out = {}
+    for r in H128_TILE_COST:
+        info = (ctypes.c_int * 5)()
+        _build.check(lib.bilstm_h128_info(r, kernel == "fwd", info),
+                     "bilstm_h128_info")
+        out[r] = info[4]
+    return out
+
+
+def tile_rows_h128(n: int, nd: int, device, kernel: str) -> int:
+    """Rows a cluster of the H = 128 `kernel` ("b2" or "fwd") takes for n
+    rows and nd directions: the tile whose clusters run in the fewest
+    waves times its cost a wave (H128_TILE_COST); on a tie the smaller
+    tile."""
+    held = _h128_facts(device, kernel)
+
+    def time(r):
+        return -(-nd * -(-n // r) // max(1, held[r])) * H128_TILE_COST[r]
+    return min(sorted(H128_TILE_COST), key=time)
+
+
+def bilstm_scan_h128_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
+    """Launch B2 at H = 128 (`csrc/bilstm_scan.cu`) on the current stream:
+    xp [T, 2, B, 512], w_hh [2, 128, 512] float32, contiguous, on one GPU
+    -> (ys [T, 2, B, 128], c_T [2, B, 128]). Inference only, as
+    `bilstm_scan_cuda`, which checks its inputs and calls this."""
+    t_len, _, b, _ = xp.shape
+    ys = torch.empty((t_len, 2, b, 128), device=xp.device,
+                     dtype=torch.float32)
+    c_t = torch.empty((2, b, 128), device=xp.device, dtype=torch.float32)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = lib.bilstm_scan_h128_f32(xp.data_ptr(), w_hh.data_ptr(),
+                                  ys.data_ptr(), c_t.data_ptr(), t_len, b,
+                                  tile_rows_h128(b, 2, xp.device, "b2"),
+                                  stream)
+    _build.check(rc, "bilstm_scan_h128_f32")
+    bilstm_scan_h128_cuda.launches += 1
+    return ys, c_t
+
+
+bilstm_scan_h128_cuda.launches = 0
 
 
 def _train_shapes(xp, w_hh, name):
@@ -279,10 +351,14 @@ def bilstm_scan_train_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
     """Launch the state-saving forward: (y, c_T, cs) as
     `bilstm_train_reference(..., with_cs=True)`; without `save_cs` (a
     pass that keeps no gradient) cs is not written and comes back
-    None."""
+    None. At H = 128 it launches `bilstm_train_fwd_h128_cuda`'s kernel,
+    whose counter counts it; `bilstm_scan_train_cuda.launches` counts the
+    H = 64 kernel."""
     n, t_len, nd, hidden = _train_shapes(xp, w_hh, "bilstm_scan_train_cuda")
     _check(xp, w_hh, "bilstm_scan_train_cuda", 4 * hidden,
            h0=(h0, (nd, n, hidden)), c0=(c0, (nd, n, hidden)))
+    if hidden == 128:
+        return bilstm_train_fwd_h128_cuda(xp, w_hh, h0, c0, save_cs)
     y = torch.empty((n, t_len, nd * hidden), device=xp.device,
                     dtype=torch.float32)
     cs = torch.empty_like(y) if save_cs else None
@@ -301,14 +377,38 @@ def bilstm_scan_train_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
 bilstm_scan_train_cuda.launches = 0
 
 
+def bilstm_train_fwd_h128_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
+    """Launch the training forward at H = 128 (`csrc/bilstm_scan.cu`):
+    (y, c_T, cs) as `bilstm_scan_train_cuda`, which checks its inputs
+    and calls this."""
+    n, t_len, dg = xp.shape
+    nd = dg // 512
+    y = torch.empty((n, t_len, nd * 128), device=xp.device,
+                    dtype=torch.float32)
+    cs = torch.empty_like(y) if save_cs else None
+    c_t = torch.empty((nd, n, 128), device=xp.device, dtype=torch.float32)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = lib.bilstm_train_fwd_h128_f32(
+        xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), y.data_ptr(),
+        _ptr(cs), c_t.data_ptr(), t_len, nd, n,
+        tile_rows_h128(n, nd, xp.device, "fwd"), stream)
+    _build.check(rc, "bilstm_train_fwd_h128_f32")
+    bilstm_train_fwd_h128_cuda.launches += 1
+    return y, c_t, cs
+
+
+bilstm_train_fwd_h128_cuda.launches = 0
+
+
 def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
     """Launch the backward: (dxp, dh0, dc0) as
     `bilstm_train_backward_reference`."""
     n, t_len, nd, hidden = _train_shapes(xp, w_hh, "bilstm_scan_bwd_cuda")
     seq, state = (n, t_len, nd * hidden), (nd, n, hidden)
-    _check(xp, w_hh, "bilstm_scan_bwd_cuda", 4 * hidden, h0=(h0, state),
-           c0=(c0, state), y=(y, seq), cs=(cs, seq), dy=(dy, seq),
-           dc_t=(dc_t, state))
+    _check(xp, w_hh, "bilstm_scan_bwd_cuda", 4 * hidden, BACKWARD_WIDTHS,
+           h0=(h0, state), c0=(c0, state), y=(y, seq), cs=(cs, seq),
+           dy=(dy, seq), dc_t=(dc_t, state))
     if y is None or cs is None:
         raise ValueError("bilstm_scan_bwd_cuda needs the forward's y and cs")
     dxp = torch.empty_like(xp)
@@ -368,13 +468,24 @@ def bilstm_scan_train(xp, w_hh, h0=None, c0=None):
     [N, T, D*H], c_T [D, N, H]), direction 1 over time T-1..0. On the
     card everything is cast to contiguous float32 first. When no input
     needs a gradient it runs the forward alone, and on the card saves
-    no cell states."""
+    no cell states. On the card a width without a backward kernel
+    (BACKWARD_WIDTHS) is refused here, before the forward, when a
+    gradient is needed."""
     needs_grad = torch.is_grad_enabled() and any(
         v is not None and v.requires_grad for v in (xp, w_hh, h0, c0))
     if xp.device.type == "cpu":
         if not needs_grad:
             return bilstm_train_reference(xp, w_hh, xp.dtype, h0, c0)
         return BiLSTMScan.apply(xp, w_hh, h0, c0)
+    hidden = w_hh.shape[-2]
+    check_width(hidden, "bilstm_scan_train")
+    if needs_grad and hidden not in BACKWARD_WIDTHS:
+        raise NotImplementedError(
+            f"bilstm_scan_train: a gradient at H={hidden} needs the "
+            f"backward kernel at H={hidden}, which is not yet ported (the "
+            f"card's backward takes H="
+            f"{' or '.join(map(str, BACKWARD_WIDTHS))}); run under "
+            "torch.no_grad() or on the CPU")
     xp, w_hh = xp.float().contiguous(), w_hh.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
     c0 = None if c0 is None else c0.float().contiguous()

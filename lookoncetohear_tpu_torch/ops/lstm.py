@@ -7,7 +7,9 @@ an inference BiLSTM, and the differentiable `bilstm_scan_train`
 (state-saving forward and backward kernels on the card, which take the
 projections [B, T, D*4H] and return y [B, T, D*H] as they are) for a
 BiLSTM that needs a gradient and for the one-direction LSTM from a
-carried state. The T = 1 serving step is plain ops (`lstm_step`).
+carried state. The T = 1 serving step is plain ops (`lstm_step`). The
+kernels take H = 64 and H = 128 (the reference's default `Net`); at
+H = 128 only without a gradient on the card (no backward kernel yet).
 """
 
 from __future__ import annotations

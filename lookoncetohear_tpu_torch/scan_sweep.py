@@ -13,6 +13,14 @@ backward (`bilstm_train_bwd_f32`) launched through their C entries at
 each R, the median device time of REPS launches by CUDA events, each
 output's largest difference from the plain version, and the kernels for
 which the wrapper picks that R (`ops/bilstm_scan.py::tile_rows`).
+Then the H = 128 kernels (`csrc/bilstm_scan.cu`, 2-CTA clusters of R
+rows) at the reference's default `Net`'s scans (B2 at its 64-stream
+step [141, 2, 64] and at the full forward's [141, 2, 500] and the
+eval's batch of 4 [141, 2, 2000]; the training forward at the full
+forward's inter-time scan (500, 1, 141) and the eval's (500, 1, 564),
+from a carried state): each tile's build and the clusters the card holds
+at once, its median device time, its largest difference from the plain
+version, and whether `tile_rows_h128` picks it.
 Random inputs made on the card from a seed. Prints one JSON object per
 measurement, each with the card's name and power limit, and writes them
 to --out if given.
@@ -31,15 +39,24 @@ import torch
 
 from lookoncetohear_tpu_torch import _build
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (
-    TRAIN_TILE_COST, bilstm_train_backward_reference, bilstm_train_reference,
-    tile_rows)
+    H128_TILE_COST, TRAIN_TILE_COST, bilstm_scan_reference,
+    bilstm_train_backward_reference, bilstm_train_reference, tile_rows,
+    tile_rows_h128)
 from lookoncetohear_tpu_torch.timing import device_ms
 
 SHAPES = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
           "embed_intra": (62, 2, 10008), "embed_inter": (1248, 2, 520),
           "full_forward_inter": (625, 1, 97), "eval_inter": (625, 1, 388)}
+# the H = 128 kernels' shapes: B2 [T, 2, B]; the training forward
+# (T, D, N) from a carried state
+H128_SHAPES = {"b2_serving": (141, 2, 64), "b2_full_forward": (141, 2, 500),
+               "b2_eval": (141, 2, 2000),
+               "fwd_full_forward_inter": (500, 1, 141),
+               "fwd_eval_inter": (500, 1, 564)}
 REPS = 10  # timed launches of each kernel at each tile and shape
 INFO = ("threads", "smem_bytes", "registers", "spill_bytes", "blocks_per_sm")
+INFO_H128 = ("threads", "smem_bytes", "registers", "spill_bytes",
+             "clusters_held")
 
 
 def main() -> int:
@@ -113,10 +130,57 @@ def main() -> int:
                          if r == tile_rows(n, nd, dev, k)])
         del xp, w, dy, dxp, y, cs, want_f, want_b
         torch.cuda.empty_cache()
+    sweep_h128(lib, emit, dev, g, stream)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
     return 0
+
+
+def sweep_h128(lib, emit, dev, g, stream):
+    """The H = 128 kernels at every cluster tile and H128_SHAPES."""
+    for kernel in ("b2", "fwd"):
+        for r in H128_TILE_COST:
+            out = (ctypes.c_int * 5)()
+            _build.check(lib.bilstm_h128_info(r, kernel == "fwd", out),
+                         "bilstm_h128_info")
+            emit(kernel=f"bilstm_h128_{kernel}", rows=r,
+                 **dict(zip(INFO_H128, out)))
+    for key, (t_, nd, n) in H128_SHAPES.items():
+        kernel = key.split("_")[0]
+
+        def r_(*shape, k=0.5):
+            return torch.randn(shape, generator=g, device=dev) * k
+        p = (lambda t: None if t is None else t.data_ptr())
+        if kernel == "b2":
+            xp, w = r_(t_, 2, n, 512), r_(2, 128, 512, k=0.2)
+            want = bilstm_scan_reference(xp, w)
+            got = tuple(torch.empty_like(e) for e in want)
+
+            def run(r, i):
+                _build.check(lib.bilstm_scan_h128_f32(
+                    p(xp), p(w), p(got[0]), p(got[1]), t_, n, r, stream),
+                    "bilstm_scan_h128_f32")
+        else:
+            xp, w = r_(n, t_, nd * 512), r_(nd, 128, 512, k=0.2)
+            h0, c0 = r_(nd, n, 128), r_(nd, n, 128)
+            want = bilstm_train_reference(xp, w, torch.float32, h0, c0)
+            got = tuple(torch.empty_like(e) for e in want)
+
+            def run(r, i):
+                _build.check(lib.bilstm_train_fwd_h128_f32(
+                    p(xp), p(w), p(h0), p(c0), p(got[0]), None, p(got[1]),
+                    t_, nd, n, r, stream), "bilstm_train_fwd_h128_f32")
+        for r in H128_TILE_COST:
+            run(r, 0)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            emit(shape=key, T=t_, D=nd, N=n, rows=r,
+                 us=device_ms(lambda i: run(r, i), REPS) * 1e3,
+                 max_abs_err=err,
+                 picked=r == tile_rows_h128(n, nd, dev, kernel))
+        del xp, w, want, got
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

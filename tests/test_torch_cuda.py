@@ -56,7 +56,7 @@ def test_bilstm_kernel_matches_plain(dev, b, h):
 
 
 def test_bilstm_kernel_refuses_other_widths(dev):
-    """The kernel is built for the model's H=64 only."""
+    """The kernels are built for H=64 and H=128 only."""
     xp = torch.zeros(3, 2, 5, 64, device=dev)
     w_hh = torch.zeros(2, 16, 64, device=dev)
     with pytest.raises(ValueError, match="H=64"):
@@ -498,6 +498,108 @@ def test_bilstm_train_kernels_match_plain(dev, t, nd, b):
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=0,
                                    atol=tol * max(1.0, e.abs().max().item()))
+
+
+H128_TILES = (2, 4, 8)
+
+
+@pytest.mark.parametrize("t,b", [(141, 64), (141, 500), (141, 13)])
+def test_bilstm_h128_kernel_matches_plain(dev, t, b):
+    """B2 at H = 128 (2-CTA clusters) at the default Net's serving and
+    full-forward rows and a count no tile divides, through the wrapper
+    and through the C entry at every tile of R rows: 141 steps at atol
+    2e-5, as B2 at H = 64."""
+    from lookoncetohear_tpu_torch import _build
+    from lookoncetohear_tpu_torch.ops.bilstm_scan import \
+        bilstm_scan_h128_cuda
+    g = torch.Generator().manual_seed(t + b)
+    xp = (torch.randn(t, 2, b, 512, generator=g) * 0.5).to(dev)
+    w_hh = (torch.randn(2, 128, 512, generator=g) * 0.2).to(dev)
+    rys, rc = bilstm_scan_reference(xp, w_hh)
+    before = bilstm_scan_h128_cuda.launches
+    got = [bilstm_scan_cuda(xp, w_hh)]
+    assert bilstm_scan_h128_cuda.launches == before + 1
+    lib = _build.load_library()
+    for r in H128_TILES:
+        ys, c_t = torch.empty_like(rys), torch.empty_like(rc)
+        _build.check(lib.bilstm_scan_h128_f32(
+            xp.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), c_t.data_ptr(),
+            t, b, r, torch.cuda.current_stream().cuda_stream),
+            "bilstm_scan_h128_f32")
+        got.append((ys, c_t))
+    torch.cuda.synchronize()
+    for ys, c_t in got:
+        torch.testing.assert_close(ys, rys, atol=2e-5, rtol=0)
+        torch.testing.assert_close(c_t, rc, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t,nd,n,carried", [(500, 1, 141, True),
+                                            (97, 2, 37, False),
+                                            (60, 2, 9, True)])
+def test_bilstm_train_fwd_h128_matches_plain(dev, t, nd, n, carried):
+    """The training forward at H = 128 in the models' layouts: the full
+    forward's inter-time scan (T=500, D=1, N=141) from (h0, c0), both
+    directions from zero and from (h0, c0), at every tile; y, c_T and
+    every c against the plain version at 2e-5 of the peak up to 97
+    steps, 1e-4 beyond (as at H = 64); without cs the same y and c_T bit
+    for bit."""
+    from lookoncetohear_tpu_torch import _build
+    from lookoncetohear_tpu_torch.ops.bilstm_scan import (
+        bilstm_scan_train_cuda, bilstm_train_fwd_h128_cuda,
+        bilstm_train_reference)
+    g = torch.Generator().manual_seed(t + nd + n)
+    r = lambda *s, k=0.5: (torch.randn(*s, generator=g) * k).to(dev)
+    xp, w = r(n, t, nd * 512), r(nd, 128, 512, k=0.2)
+    h0, c0 = (r(nd, n, 128), r(nd, n, 128)) if carried else (None, None)
+    want = bilstm_train_reference(xp, w, torch.float32, h0, c0,
+                                  with_cs=True)
+    tol = 2e-5 if t <= 97 else 1e-4
+    before = bilstm_train_fwd_h128_cuda.launches
+    runs = [bilstm_scan_train_cuda(xp, w, h0, c0)]
+    lean = bilstm_scan_train_cuda(xp, w, h0, c0, save_cs=False)
+    assert bilstm_train_fwd_h128_cuda.launches == before + 2
+    lib = _build.load_library()
+    p = lambda v: None if v is None else v.data_ptr()
+    for rows in H128_TILES:
+        out = tuple(torch.empty_like(e) for e in want)
+        _build.check(lib.bilstm_train_fwd_h128_f32(
+            p(xp), p(w), p(h0), p(c0), p(out[0]), p(out[2]), p(out[1]),
+            t, nd, n, rows, torch.cuda.current_stream().cuda_stream),
+            "bilstm_train_fwd_h128_f32")
+        runs.append(out)
+    torch.cuda.synchronize()
+    for got in runs:
+        for a, e in zip(got, want):
+            torch.testing.assert_close(
+                a, e, rtol=0, atol=tol * max(1.0, e.abs().max().item()))
+    assert lean[2] is None
+    assert torch.equal(lean[0], runs[0][0]) and torch.equal(lean[1],
+                                                             runs[0][1])
+
+
+def test_h128_gradient_is_refused_on_the_card(dev):
+    """No backward kernel at H = 128 yet: a call that needs a gradient
+    raises before any launch, naming the missing backward, and nothing
+    falls back to the plain version; without a gradient it runs."""
+    from lookoncetohear_tpu_torch.ops import bilstm_scan as bs
+    from lookoncetohear_tpu_torch.ops.lstm import LSTM
+    torch.manual_seed(0)
+    bi = LSTM(16, 128, bidirectional=True).to(dev)
+    uni = LSTM(16, 128).to(dev)
+    x = torch.randn(3, 9, 16, device=dev)
+    counts = lambda: (bs.bilstm_scan_h128_cuda.launches,
+                      bs.bilstm_train_fwd_h128_cuda.launches,
+                      bs.bilstm_scan_train_cuda.launches,
+                      bs.bilstm_scan_bwd_cuda.launches)
+    c0 = counts()
+    for m in (bi, uni):
+        with pytest.raises(NotImplementedError,
+                           match="backward kernel at H=128"):
+            m(x)
+    assert counts() == c0
+    with torch.no_grad():
+        bi(x), uni(x)
+    assert [a - b for a, b in zip(counts(), c0)] == [1, 1, 0, 0]
 
 
 def test_training_reciprocal_is_the_ieee_quotient(dev):

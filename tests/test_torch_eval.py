@@ -1,8 +1,10 @@
 """The two-stage eval, PyTorch port vs the JAX package, on the CPU: the
 SDR family, the embedding losses, the improvement and binaural metrics,
 the synthetic test split and its collation, the eval CLI (`run`) on the
-tiny configs of tests/test_eval_harness.py and at full width from the
-committed checkpoints, and the serving-precision study.
+tiny configs of tests/test_eval_harness.py, and the serving-precision
+study. The CLI at full width from the committed checkpoints is in
+tests/test_torch_eval_full.py (its own file, so that a worker of its
+own can run it beside this one).
 
 Tolerances and why:
   * tensor losses and metrics: rtol 1e-5, atol 1e-6 (float32 reductions
@@ -55,6 +57,18 @@ from test_eval_harness import TINY_EMBED_CFG, TINY_TSE_CFG
 RESULTS = "docs/results_r5"
 DB_TOL = {"si_snr_i": 1e-3, "output_sisnr": 1e-3, "delta_ild_db": 1e-3,
           "embedding_sim": 1e-5}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The eval's loops of small ops (the streaming engine over short
+    chunks, the tiny CLI runs) run on one thread: with several test
+    workers on one host, each at torch's default thread count, they
+    slow down many times over from oversubscription."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rand(shape, seed, scale=1.0):
@@ -320,62 +334,6 @@ def test_tiny_eval_matches_the_jax_cli(tmp_path, mode):
     res = _hold(csvs[1], eval_check.read_csv(csvs[0]))
     assert res["rows"] == 8
     assert ("delta_itd_us" in res["max_dev"]) == extra["binaural"]
-
-
-def _cut_config(tmp_path, path, n):
-    with open(path) as f:
-        cfg = json.load(f)
-    cfg["test_data_args"]["n_samples"] = n
-    return _write(tmp_path, cfg, f"cut_{n}_{os.path.basename(path)}")
-
-
-FULL = {
-    "oracle": (None, None, None, "5k_oracle_results_test_clean.csv"),
-    "two-stage": ("configs/embed_synthetic_5k.json", "runs/embed_r5_5k",
-                  "checkpoints/embed_r5_5k_best.npz",
-                  "5k_twostage_results_test_embed_r5_5k.csv"),
-}
-
-
-@pytest.mark.parametrize("mode", list(FULL))
-def test_full_width_eval_reproduces_the_committed_csv(tmp_path, mode):
-    """Scenes 0 and 1 of the 5k test split through the port's CLI on the
-    CPU from the committed checkpoints: each row within 1e-3 dB of the
-    JAX package's CSV (made by its CLI on a CPU)."""
-    econfig, erun, eckpt, ref = FULL[mode]
-    rows = tcli.run(_args(
-        _cut_config(tmp_path, "configs/tsh_synthetic_5k.json", 2),
-        str(tmp_path), econfig, erun, ckpt="checkpoints/tsh_r5_5k_best.npz",
-        enroll_ckpt=eckpt, device="cpu"))
-    assert len(rows) == 2
-    name = "results_test_" + (os.path.basename(erun) if erun else "clean")
-    _hold(str(tmp_path / f"{name}.csv"),
-          eval_check.read_csv(os.path.join(RESULTS, ref))[:2])
-
-
-def test_full_width_binaural_row_matches_the_jax_cli(tmp_path):
-    """Row 0 of the 64-scene split with --binaural, tsh_r5_best.npz:
-    the port against the JAX CLI on the CPU (every column, dB within
-    1e-3), and against the committed results_test_clean.csv in every
-    column that does not depend on the model. That CSV was made on a
-    TPU, whose default float32 matmuls round their inputs to bf16: its
-    dB columns sit ~0.07 dB from the float32 result of both packages."""
-    config = _cut_config(tmp_path, "configs/tsh_synthetic.json", 1)
-    ckpt = "checkpoints/tsh_r5_best.npz"
-    csvs = []
-    for cli, sub, kw in ((jcli, "jax", {}),
-                         (tcli, "port", {"device": "cpu"})):
-        run_dir = str(tmp_path / sub)
-        os.makedirs(run_dir)
-        cli.run(_args(config, run_dir, ckpt=ckpt, binaural=True, **kw))
-        csvs.append(os.path.join(run_dir, "results_test_clean.csv"))
-    _hold(csvs[1], eval_check.read_csv(csvs[0]))
-    got = eval_check.read_csv(csvs[1])[0]
-    want = eval_check.read_csv(os.path.join(RESULTS,
-                                            "results_test_clean.csv"))[0]
-    assert list(got) == list(want)
-    model_free = [c for c in got if c not in DB_TOL]
-    assert {c: got[c] for c in model_free} == {c: want[c] for c in model_free}
 
 
 def test_cli_refuses_what_the_port_does_not_run(tmp_path):

@@ -128,6 +128,35 @@ print("ok")
         assert n.replace(".", "/") + ".py" in files, n
 
 
+def test_film_and_crossval_run_with_jax_blocked(tmp_path):
+    """FiLM and the scaper cross-validation harness import and run with
+    JAX unimportable: a FiLM forward, and `against_scaper` refusing
+    without scaper (ImportError, which the CLI reports as a skip)."""
+    code = """
+import sys
+for m in ("jax", "jaxlib", "flax", "optax", "lookoncetohear_tpu", "scaper"):
+    sys.modules[m] = None
+import torch
+from lookoncetohear_tpu_torch.data import scaper_crossval
+from lookoncetohear_tpu_torch.ops.film import FiLM
+y = FiLM(4, 3)(torch.ones(2, 3, 5), torch.ones(2, 4))
+assert y.shape == (2, 3, 5)
+try:
+    scaper_crossval.against_scaper("missing", "fg", "bg")
+except ImportError:
+    pass
+else:
+    raise AssertionError("against_scaper ran without scaper")
+assert not any(m.startswith(("jax", "flax")) for m in sys.modules
+               if sys.modules[m] is not None)
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def _smoke(cwd):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           capture_output=True, text=True, timeout=120)
