@@ -133,6 +133,7 @@ CHUNK_MS = 8.0                # 128 samples at 16 kHz
 # H100 SXM published peaks (NVIDIA data sheet, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12        # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores, dense
 # tolerances (kernel vs its plain version, same inputs, on the card)
 TOL_LSTM = 2e-5               # float32, the JAX Pallas-vs-scan bound
 # float32 over the enrollment net's 1,248-step inter-time scans: the cell
@@ -298,13 +299,14 @@ DEFAULT_FULL_SECONDS = 5.0
 # inter-time scan and over both directions
 H128_SCANS = {"serving": 64, "full_forward": 500, "tail": 13}
 H128_TRAIN = {"full_forward_inter": (500, 1, 141, True),
-              "both_directions": (141, 2, 64, False)}
+              "both_directions": (141, 2, 64, False),
+              "eval_inter": (500, 1, 564, True)}
 # counter name -> the kernel's name in a profiler trace (or the parts
 # that name must all hold: the H=128 kernels' names carry their tile)
 TRACE_NAMES = {
     "bilstm_scan": "bilstm_scan_kernel<64, false>",
-    "bilstm_scan_h128": ("bilstm_h128_kernel<", ", false>"),
-    "bilstm_scan_fwd_train_h128": ("bilstm_h128_kernel<", ", true>"),
+    "bilstm_scan_h128": ("bilstm_h128_mma_kernel<", ", false>"),
+    "bilstm_scan_fwd_train_h128": ("bilstm_h128_mma_kernel<", ", true>"),
     "bilstm_scan_fwd_train": "bilstm_train_fwd_kernel",
     "bilstm_scan_bwd": "bilstm_train_bwd_kernel",
     "ring_int8_step": "ring_int8_step_kernel<__nv_bfloat16>",
@@ -312,7 +314,7 @@ TRACE_NAMES = {
     "attn_step_bf16": "attn_step_kernel<__nv_bfloat16, __nv_bfloat16>",
     "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>"}
 PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_train_fwd_kernel",
-                "bilstm_train_bwd_kernel", "bilstm_h128_kernel",
+                "bilstm_train_bwd_kernel", "bilstm_h128_mma_kernel",
                 "ring_int8_step_kernel", "attn_step_kernel")
 # traces of a profile at most: eager-engine traces holding 29 of 10
 # steps' 30 B2 launches came back in two runs of this script
@@ -1139,15 +1141,17 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
     141 bins, 6 blocks, H = 128, no attention) on the card, its weights
     a seeded init of the port (no checkpoint has this shape); every
     LSTM recurrence on the H = 128 kernels of `csrc/bilstm_scan.cu`:
-      * what ptxas reported for them, and each tile's build and the
-        clusters the card holds at once;
+      * what ptxas reported for them, and each tile's (R rows, clusters
+        of C CTAs) build and the clusters the card holds at once;
       * B2 at H = 128 against its plain version at the 64-stream step's
         [141, 2, 64, 512], the full forward's [141, 2, 500, 512] and a
         tail [141, 2, 13, 512] (TOL_LSTM); the training forward at the
-        full forward's inter-time scan (N=141, T=500, D=1) from (h0, c0)
-        and both directions (N=64, T=141, D=2) from zero, each saving
-        every c and not (the same y and c_T bit for bit), at
-        TOL_LSTM_LONG of the peak (over 97 steps);
+        full forward's and the eval's inter-time scans (N=141 and 564,
+        T=500, D=1) from (h0, c0) and both directions (N=64, T=141, D=2)
+        from zero, each saving every c and not (the same y and c_T bit
+        for bit), at TOL_LSTM_LONG of the peak (over 97 steps); each
+        through its wrapper and through its C entry at every tile (R, C)
+        the wrapper can pick;
       * 4 streams in float32, the GPU engine against the CPU engine,
         each step from the same state, TOL_PATH of the peak;
       * 64 streams, the CUDA-graph engine against the eager one at
@@ -1160,15 +1164,18 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
         the streamed graph engine against the full forward on the card;
       * times by CUDA events: each kernel, its plain version and cuDNN's
         `nn.LSTM(hidden_size=128)` over the same rows and steps (input
-        width 64); the engine step at float32 and bf16, graph and eager
-        (RTF of the 10 ms chunk), the graph step's profile; the full
+        width 64), beside two bounds: float32 FMAs at 67 TFLOP/s and the
+        kernels' own three TF32 products at 495 TFLOP/s (the kernels line
+        takes the latter, the operations they run); the engine step at
+        float32 and bf16, graph and eager (RTF of the 10 ms chunk), the
+        graph step's profile; the full
         forward over DEFAULT_FULL_SECONDS."""
     import ctypes
     from lookoncetohear_tpu_torch import _build
     from lookoncetohear_tpu_torch.models.net import Net
     from lookoncetohear_tpu_torch.ops.bilstm_scan import (
         H128_TILE_COST, bilstm_scan_cuda, bilstm_scan_reference,
-        bilstm_scan_train_cuda, bilstm_train_reference)
+        bilstm_scan_train_cuda, bilstm_train_reference, tile_h128)
     from lookoncetohear_tpu_torch.serve.engine import (WARMUP_STEPS,
                                                        StreamingEngine)
     from lookoncetohear_tpu_torch.timing import device_ms, wall_ms
@@ -1187,26 +1194,36 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
             for shown in lines[i:i + 4]:
                 log(f"  {shown}")
     for kname, train in (("B2", 0), ("training forward", 1)):
-        for r in H128_TILE_COST:
-            out = (ctypes.c_int * 5)()
-            _build.check(lib.bilstm_h128_info(r, train, out),
+        for r, cl in H128_TILE_COST:
+            out = (ctypes.c_int * 6)()
+            _build.check(lib.bilstm_h128_info(r, cl, train, out),
                          "bilstm_h128_info")
-            log(f"  H=128 {kname}, tile of {r} rows: {out[0]} threads, "
-                f"{out[2]} registers, {out[3]} B spilled, {out[1]} B "
-                f"shared memory, {out[4]} clusters of 2 CTAs at once")
+            log(f"  H=128 {kname}, tile of {r} rows over {cl} CTAs: "
+                f"{out[0]} threads, {out[2]} registers, {out[3]} B spilled, "
+                f"{out[1]} B shared memory, {out[4]} clusters at once, "
+                f"{out[5]} CTAs an SM")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = (lambda v: None if v is None else v.data_ptr())  # noqa: E731
 
     # the kernels against their plain versions
     errs = {"bilstm_scan_h128": 0.0, "bilstm_scan_fwd_train_h128": 0.0}
     scans = {}
     for key, b in H128_SCANS.items():
         xp, w_hh = rnd(141, 2, b, 512), rnd(2, 128, 512, k=0.2)
-        ys, c_t = bilstm_scan_cuda(xp, w_hh)
+        runs = [bilstm_scan_cuda(xp, w_hh)]
+        for tile in H128_TILE_COST:
+            out = (torch.empty_like(runs[0][0]), torch.empty_like(runs[0][1]))
+            _build.check(lib.bilstm_scan_h128_f32(
+                ptr(xp), ptr(w_hh), ptr(out[0]), ptr(out[1]), 141, b, *tile,
+                stream), "bilstm_scan_h128_f32")
+            runs.append(out)
         rys, rc = bilstm_scan_reference(xp, w_hh)
         torch.cuda.synchronize()
-        err = max((ys - rys).abs().max().item(),
-                  (c_t - rc).abs().max().item())
-        log(f"  B2 at H=128 {list(xp.shape)}: max|kernel - plain| = "
-            f"{err:.3e} (tolerance {TOL_LSTM})")
+        err = max(max((ys - rys).abs().max().item(),
+                      (c_t - rc).abs().max().item()) for ys, c_t in runs)
+        log(f"  B2 at H=128 {list(xp.shape)}, tile "
+            f"{tile_h128(b, 2, dev, 'b2')} and through the C entry at every "
+            f"tile: max|kernel - plain| = {err:.3e} (tolerance {TOL_LSTM})")
         if not err <= TOL_LSTM:
             raise AssertionError(f"B2 at H=128 differs: {err}")
         errs["bilstm_scan_h128"] = max(errs["bilstm_scan_h128"], err)
@@ -1217,15 +1234,25 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
             else (None, None)
         got = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
         lean = bilstm_scan_train_cuda(xp, w_hh, h0, c0, save_cs=False)
+        runs = [got]
+        for tile in H128_TILE_COST:
+            out = tuple(torch.empty_like(v) for v in got)
+            _build.check(lib.bilstm_train_fwd_h128_f32(
+                ptr(xp), ptr(w_hh), ptr(h0), ptr(c0), ptr(out[0]),
+                ptr(out[2]), ptr(out[1]), t_, nd, n, *tile, stream),
+                "bilstm_train_fwd_h128_f32")
+            runs.append(out)
         want = bilstm_train_reference(xp, w_hh, torch.float32, h0, c0,
                                       with_cs=True)
         torch.cuda.synchronize()
         err = max((a - e).abs().max().item() / max(1.0, e.abs().max().item())
-                  for a, e in zip(got, want))
+                  for run in runs for a, e in zip(run, want))
         log(f"  training forward at H=128 (T={t_}, D={nd}, N={n}"
-            f"{', from h0/c0' if carried else ''}): max|kernel - plain| / "
-            f"max(1, peak) over y, c_T, cs = {err:.3e} (tolerance "
-            f"{TOL_LSTM_LONG}); without cs y and c_T bit for bit")
+            f"{', from h0/c0' if carried else ''}), tile "
+            f"{tile_h128(n, nd, dev, 'fwd')} and through the C entry at "
+            f"every tile: max|kernel - plain| / max(1, peak) over y, c_T, "
+            f"cs = {err:.3e} (tolerance {TOL_LSTM_LONG}); without cs y and "
+            f"c_T bit for bit")
         if not (err <= TOL_LSTM_LONG and lean[2] is None
                 and torch.equal(lean[0], got[0])
                 and torch.equal(lean[1], got[1])):
@@ -1394,9 +1421,13 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
 
     # times: the kernels beside their plain versions and cuDNN
     def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+        """(ms, what bounds it) of the kernels' own operations, three TF32
+        products on the tensor cores, and the float32 FMA bound (ms)."""
+        t_bytes = nbytes / PEAK_BYTES_S
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
         return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
+                "bytes" if t_bytes >= t_ops else "operations",
+                max(t_bytes, flops / PEAK_F32_FLOPS) * 1e3)
     step_flops = 2 * 128 * 512 + 512          # a row and direction a step
     for key in H128_SCANS:
         xp, w_hh = scans[key]
@@ -1411,15 +1442,19 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
         for _ in range(3):
             lstm(x_in)
         l_ms = device_ms(lambda i: lstm(x_in), 30)
-        b_ms, by = bound(4 * (xp.numel() + w_hh.numel() + 141 * 2 * b * 128
-                              + 2 * b * 128), 141 * 2 * b * step_flops)
+        b_ms, by, f32_ms = bound(4 * (xp.numel() + w_hh.numel()
+                                      + 141 * 2 * b * 128 + 2 * b * 128),
+                                 141 * 2 * b * step_flops)
         row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                   bound_by=by)
+                   bound_by=by, bound_f32_ms=f32_ms,
+                   tile=list(tile_h128(b, 2, dev, "b2")))
         res[f"bilstm_scan_h128_{key}"] = row
         if key == "serving":
             res["bilstm_scan_h128"].update(row)
-        log(f"  B2 at H=128 {list(xp.shape)}: kernel {k_ms * 1e3:.1f} us, "
-            f"bound {b_ms * 1e3:.2f} us ({by}), plain {p_ms * 1e3:.1f} us, "
+        log(f"  B2 at H=128 {list(xp.shape)}, tile {row['tile']}: kernel "
+            f"{k_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({by}, three "
+            f"TF32 products; float32 FMAs {f32_ms * 1e3:.2f} us), plain "
+            f"{p_ms * 1e3:.1f} us, "
             f"cuDNN nn.LSTM(64, 128, bidirectional) {l_ms * 1e3:.1f} us "
             f"[{smi}]")
     for key, (t_, nd, n, carried) in H128_TRAIN.items():
@@ -1439,16 +1474,19 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
             lstm(x_in, hc)
         l_ms = device_ms(lambda i: lstm(x_in, hc), 20)
         states = (2 if carried else 0) * nd * n * 128
-        b_ms, by = bound(4 * (xp.numel() + w_hh.numel() + states
-                              + t_ * nd * n * 128 + nd * n * 128),
-                         t_ * nd * n * step_flops)
+        b_ms, by, f32_ms = bound(4 * (xp.numel() + w_hh.numel() + states
+                                      + t_ * nd * n * 128 + nd * n * 128),
+                                 t_ * nd * n * step_flops)
         row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                   bound_by=by)
+                   bound_by=by, bound_f32_ms=f32_ms,
+                   tile=list(tile_h128(n, nd, dev, "fwd")))
         res[f"bilstm_scan_fwd_train_h128_{key}"] = row
         if key == "full_forward_inter":
             res["bilstm_scan_fwd_train_h128"].update(row)
-        log(f"  training forward at H=128 (T={t_}, D={nd}, N={n}), no cs: "
-            f"kernel {k_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({by}), "
+        log(f"  training forward at H=128 (T={t_}, D={nd}, N={n}), no cs, "
+            f"tile {row['tile']}: kernel {k_ms * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({by}, three TF32 products; float32 FMAs "
+            f"{f32_ms * 1e3:.2f} us), "
             f"plain {p_ms * 1e3:.1f} us, cuDNN nn.LSTM(64, 128"
             f"{', bidirectional' if nd == 2 else ''}) {l_ms * 1e3:.1f} us "
             f"[{smi}]")

@@ -39,12 +39,12 @@ _SIGNATURES = {
     "bilstm_train_bwd_f32": [_P] * 11 + [_I] * 5 + [_P],
     # R, backward, int[5] out
     "bilstm_train_info": [_I, _I, _P],
-    # at H=128: xp, w_hh, ys, c_T, T, B, R, stream
-    "bilstm_scan_h128_f32": [_P] * 4 + [_I] * 3 + [_P],
-    # xp, w_hh, h0, c0, y, cs, c_T, T, D, N, R, stream
-    "bilstm_train_fwd_h128_f32": [_P] * 7 + [_I] * 4 + [_P],
-    # R, train, int[5] out
-    "bilstm_h128_info": [_I, _I, _P],
+    # at H=128: xp, w_hh, ys, c_T, T, B, R, C, stream
+    "bilstm_scan_h128_f32": [_P] * 4 + [_I] * 4 + [_P],
+    # xp, w_hh, h0, c0, y, cs, c_T, T, D, N, R, C, stream
+    "bilstm_train_fwd_h128_f32": [_P] * 7 + [_I] * 5 + [_P],
+    # R, C, train, int[6] out
+    "bilstm_h128_info": [_I, _I, _I, _P],
     # d, out, n, stream
     "bilstm_train_rcp_f32": [_P, _P, _I, _P],
     # q, k_t, v_t, k_buf, k_scale, v_buf, v_scale, pos, arrivals, out,

@@ -1,7 +1,7 @@
 """A/B of the port against another version of it, on one GPU.
 
     python3 -m lookoncetohear_tpu_torch.ab --baseline DIR [--pairs N]
-        [--out FILE]
+        [--h128] [--out FILE]
 
 DIR is a tree of another version of the port (for example the parent
 commit's `lookoncetohear_tpu_torch/`, unpacked with `git archive`); its
@@ -43,6 +43,18 @@ within one call, on one card:
     profiled step the device time of all kernels and of the layout
     copies (`direct_copy`); each version in a process of its own, in
     the order this, baseline, baseline, this (TRAIN_STEPS steps).
+  * the H = 128 kernels (B2 and the training forward at the reference's
+    default `Net`'s width) at its three path shapes: B2 at the 64-stream
+    step's [141, 2, 64, 512] and the full forward's [141, 2, 500, 512],
+    the training forward at the full forward's inter-time scan (T=500,
+    D=1, N=141) from a carried state without cs; each version through
+    its C entries with the signature its source declares and the tile
+    its own wrapper picks (`scan_phases.h128_tile`), each output's
+    largest difference from the plain version; then the default `Net`
+    (seeded weights) in a process of its own per version and turn (this,
+    baseline, baseline, this): its 64-stream CUDA-graph step at float32
+    (ms from call to synchronize, median of NET_STEPS) and its full
+    forward on 5 s (CUDA events, median of 5). `--h128` runs only these.
 The kernels run in the order this, baseline, baseline, this. Prints one
 JSON object per measurement, each with the card's name and power limit,
 and writes them to --out if given.
@@ -61,13 +73,14 @@ import numpy as np
 import torch
 
 from lookoncetohear_tpu_torch import _build
+from lookoncetohear_tpu_torch import scan_phases
 from lookoncetohear_tpu_torch.ops import ring_step as rs
 from lookoncetohear_tpu_torch.ops.attn_step import (VARIANTS,
                                                     attention_step_cuda,
                                                     attention_step_reference)
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (
     bilstm_scan_bwd_cuda, bilstm_scan_cuda, bilstm_scan_reference,
-    bilstm_scan_train_cuda, scan_layout, tile_rows)
+    bilstm_scan_train_cuda, bilstm_train_reference, scan_layout, tile_rows)
 from lookoncetohear_tpu_torch.timing import attn_entry, attn_inputs, device_ms
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -90,6 +103,71 @@ TRAIN_SCANS = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
 TRAIN_CONFIGS = {"TSETask": ROOT / "configs" / "tsh_synthetic_5k.json",
                  "EmbedTask": ROOT / "configs" / "embed_synthetic_5k.json"}
 TRAIN_STEPS = 5  # steps a version's process times; the first is not kept
+# the default Net's H = 128 scans: B2 [T, 2, B]; the training forward
+# (T, D, N) from a carried state
+H128_SHAPES = {"b2_serving": (141, 2, 64), "b2_full_forward": (141, 2, 500),
+               "fwd_full_forward_inter": (500, 1, 141)}
+NET_STEPS = 50   # timed graph steps of the default Net at 64 streams
+
+# One version's default Net (seeded weights, as chip_smoke.py builds it),
+# in a process of its own with its tree first on sys.path: the 64-stream
+# CUDA-graph step at float32 and the full forward on 5 s. Prints one JSON
+# object.
+_NET_PROBE = r"""
+import json, sys, time
+import numpy as np, torch
+tree, streams, steps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+sys.path.insert(0, tree)
+from lookoncetohear_tpu_torch.models.net import Net
+from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+with torch.random.fork_rng(devices=[]):
+    torch.manual_seed(14)
+    net_cpu = Net(device="cpu").eval()
+sd = net_cpu.state_dict()
+net = Net()
+net.load_state_dict(sd)
+net.eval()
+rng = np.random.default_rng(14)
+emb = rng.standard_normal((streams, 256)).astype(np.float32)
+emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+xs = torch.from_numpy((rng.standard_normal(
+    (steps, streams, 2, net.stft_chunk_size)) * 0.1).astype(
+        np.float32)).to(dev)
+out = {}
+with torch.no_grad():
+    eng = StreamingEngine(net, sd, max_streams=streams, cuda_graph=True)
+    for s in range(streams):
+        eng.add_stream(s, emb[s])
+    for i in range(10):
+        eng.step(xs[i])
+    ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(xs[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["graph_step_ms"] = float(np.median(ms))
+    x5 = torch.from_numpy((rng.standard_normal((1, 2, 80000)) * 0.1).astype(
+        np.float32)).to(dev)
+    e5 = torch.from_numpy(emb[:1, None]).to(dev)
+    net(x5, e5)
+    ev = []
+    for _ in range(5):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        net(x5, e5)
+        b.record()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    out["full_forward_ms"] = float(np.median([a.elapsed_time(b)
+                                              for a, b in ev]))
+print(json.dumps(out))
+"""
 
 # Run in a process of its own with one version's tree first on sys.path:
 # its engine step and its ring-step wrapper, through entry points that
@@ -232,6 +310,8 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=2,
                     help="pairs of processes (this, baseline) that time "
                     "the engine step")
+    ap.add_argument("--h128", action="store_true",
+                    help="only the H = 128 kernels and the default Net")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -321,6 +401,16 @@ def main() -> int:
                  turn=turn, **t)
             seen.setdefault(("engine step ms", label, name), []).append(
                 t["step_ms"])
+        return 0
+
+    # ---- the H = 128 kernels and the default Net
+    if "bilstm_scan_h128_f32" in (base_csrc / "bilstm_scan.cu").read_text():
+        if h128_section(base, base_tree, emit, g, stream()):
+            return 1
+    if args.h128:
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
         return 0
 
     # ---- B2
@@ -552,6 +642,92 @@ def main() -> int:
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return 0
+
+
+def h128_section(base, base_tree, emit, g, stream) -> int:
+    """The H = 128 kernels of both versions at H128_SHAPES, then each
+    version's default Net in processes of their own; non-zero if a
+    process failed."""
+    design = scan_phases.design_of(
+        (base_tree / "lookoncetohear_tpu_torch" / "csrc" /
+         "bilstm_scan.cu").read_text())
+    scan_phases.bind_h128(base, design)
+    cost = scan_phases.cost_table(base_tree)
+    dev = g.device
+    p = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    for key, (t_, nd, n) in H128_SHAPES.items():
+        train = key.startswith("fwd")
+
+        def r_(*shape, k=0.5):
+            return torch.randn(shape, generator=g, device=dev) * k
+        tile = scan_phases.h128_tile(design, base, cost, n, nd, train)
+        if train:
+            xp, w = r_(n, t_, nd * 512), r_(nd, 128, 512, k=0.2)
+            h0, c0 = r_(nd, n, 128), r_(nd, n, 128)
+            want = bilstm_train_reference(xp, w, torch.float32, h0, c0)
+            got = tuple(torch.empty_like(e) for e in want)
+
+            def this(i):
+                return bilstm_scan_train_cuda(xp, w, h0, c0,
+                                              save_cs=False)[:2]
+
+            def baseline(i):
+                _build.check(base.bilstm_train_fwd_h128_f32(
+                    p(xp), p(w), p(h0), p(c0), p(got[0]), None, p(got[1]),
+                    t_, nd, n, *tile, stream), "baseline training forward")
+                return got
+        else:
+            xp, w = r_(t_, 2, n, 512), r_(2, 128, 512, k=0.2)
+            want = bilstm_scan_reference(xp, w)
+            got = tuple(torch.empty_like(e) for e in want)
+
+            def this(i):
+                return bilstm_scan_cuda(xp, w)
+
+            def baseline(i):
+                _build.check(base.bilstm_scan_h128_f32(
+                    p(xp), p(w), p(got[0]), p(got[1]), t_, n, *tile,
+                    stream), "baseline B2")
+                return got
+        fns = {"this": this, "baseline": baseline}
+        for name, fn in fns.items():
+            out = fn(0)
+            torch.cuda.synchronize()
+            emit(kernel="h128", shape=key, version=name,
+                 max_abs_err=max((a - e).abs().max().item()
+                                 for a, e in zip(out, want)))
+        us = {}
+        for name in ORDER:
+            for i in range(3):
+                fns[name](i)
+            v = device_ms(fns[name], 20) * 1e3
+            us.setdefault(name, []).append(v)
+            emit(kernel="h128", shape=key, version=name, us=v,
+                 **({"tile": list(tile)} if name == "baseline" else {}))
+        this_us, base_us = (float(np.mean(us[v])) for v in ("this",
+                                                             "baseline"))
+        emit(kernel="h128", shape=key, what="summary", this_us=this_us,
+             baseline_us=base_us, speedup=base_us / this_us)
+        del xp, w, want, got, fns
+        torch.cuda.empty_cache()
+    runs: dict = {}
+    for turn, name in enumerate(ORDER):
+        proc = subprocess.run(
+            [sys.executable, "-c", _NET_PROBE,
+             str(ROOT if name == "this" else base_tree), "64",
+             str(NET_STEPS)], capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            print(proc.stderr, file=sys.stderr)
+            return 1
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit(what="default Net, 64 streams, float32", version=name,
+             turn=turn, **got)
+        for k, v in got.items():
+            runs.setdefault((k, name), []).append(v)
+    for (k, name), v in runs.items():
+        emit(what=f"default Net {k}, summary", version=name,
+             mean=float(np.mean(v)), runs=v)
     return 0
 
 

@@ -18,10 +18,11 @@ plain PyTorch versions.
   `_chunked_scan`): the TPU kernel has no gradient.
 
 The kernels (`csrc/bilstm_scan.cu`) take H = 64 (a block a row tile)
-and H = 128 (B2 and the training forward: a 2-CTA cluster a row tile,
-W_hh split between the pair; the backward at H = 128 is not written
-yet, so a call at H = 128 that needs a gradient is refused on the
-card). Every other width is refused.
+and H = 128 (B2 and the training forward: a cluster of C = 4 or 8 CTAs
+a tile of R = 8 or 16 rows, W_hh's gate columns split over the cluster,
+the product on the tensor cores in TF32 with three products; the
+backward at H = 128 is not written yet, so a call at H = 128 that needs
+a gradient is refused on the card). Every other width is refused.
 
 Everything runs in float32 on the card. A wrapper launches its kernel
 for CUDA tensors and uses the plain version only for CPU tensors.
@@ -47,11 +48,12 @@ BACKWARD_WIDTHS = (64,)
 # the fastest tile of each kernel at each shape
 TRAIN_TILE_COST = {"fwd": {4: 2.1, 8: 3.75, 16: 6.4},
                    "bwd": {4: 3.1, 8: 5.6, 16: 10.5}}
-# the same for the H = 128 kernels (B2 and the training forward), whose
-# 2-CTA clusters take tiles of R rows: a wave of clusters a step costs
-# 1.2 / 1.7-1.8 / 2.4-2.6 us at R = 2 / 4 / 8 (`scan_sweep` on an H100
-# at the default Net's scans, where these costs pick the fastest tile)
-H128_TILE_COST = {2: 1.0, 4: 1.45, 8: 2.05}
+# the same for the H = 128 kernels (B2 and the training forward): the
+# tile (R rows, a cluster of C CTAs) -> the relative time of a step of one
+# wave of its clusters (as many as the card holds at once), fitted to
+# `scan_sweep` on an H100 at the default Net's B2, full-forward, eval and
+# training scans, where these costs pick the fastest tile
+H128_TILE_COST = {(8, 8): 1.0, (16, 8): 1.6, (8, 4): 1.04, (16, 4): 1.8}
 
 
 def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
@@ -253,30 +255,106 @@ def bilstm_scan_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
 bilstm_scan_cuda.launches = 0
 
 
+def h128_gate_perm() -> torch.Tensor:
+    """The order in which the H = 128 kernels take W_hh's 512 gate
+    columns: column 32 b + 8 gate + i of the kernel's order is gate `gate`
+    (i, f, g, o) of hidden unit 8 b + i, i.e. original column 128 gate +
+    8 b + i. A CTA of a cluster of C owns units [128 q / C, 128 (q + 1) /
+    C) and so the contiguous columns [512 q / C, 512 (q + 1) / C) of this
+    order; an m-pair of the tensor-core product (32 columns, 8 units)
+    then leaves a lane holding i, f, g and o of one unit and row. The
+    kernels apply it as they load W_hh, once a launch."""
+    j = torch.arange(512)
+    return (j % 32 // 8) * 128 + (j // 32) * 8 + j % 8
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as `cvt.rna.tf32.f32`: on the bit pattern, add half a unit
+    of the 13 dropped bits to the magnitude and clear them (infinities
+    and NaNs kept)."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    bits = bits & 0xFFFFFFFF
+    sign, mag = bits & 0x80000000, bits & 0x7FFFFFFF
+    special = mag >= 0x7F800000
+    mag = torch.where(special, mag, (mag + 0x1000) & 0x7FFFE000)
+    out = sign | mag
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the H = 128 kernels form it on the tensor cores: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), then hi hi +
+    (hi lo + lo hi) in float32 (lo lo, 2^-22 of a product, dropped)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+    return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
+def bilstm_scan_tf32x3_reference(xp, w_hh, h0=None, c0=None,
+                                 gate_perm=None):
+    """Plain PyTorch emulation of the H = 128 kernels' arithmetic in the
+    scan layout of `bilstm_scan_reference` (xp [T, D, B, 4H], w_hh
+    [D, H, 4H], (h0, c0) [D, B, H] or None): the recurrent product by
+    `tf32x3_matmul`, the rest in float32. With `gate_perm` (as
+    `h128_gate_perm`) the product is taken against W_hh's columns in
+    that order and its gates are put back before the cell update, as the
+    kernels do. Returns (ys [T, D, B, H], c_T [D, B, H])."""
+    xp, w_hh = xp.float(), w_hh.float()
+    t_len, nd, b, g4 = xp.shape
+    hidden = g4 // 4
+    inv = None
+    if gate_perm is not None:
+        w_hh = w_hh[..., gate_perm]
+        inv = torch.argsort(gate_perm)
+    h = xp.new_zeros((nd, b, hidden)) if h0 is None else h0.float()
+    c = xp.new_zeros((nd, b, hidden)) if c0 is None else c0.float()
+    ys = []
+    for t in range(t_len):
+        prod = tf32x3_matmul(h, w_hh)
+        gates = xp[t] + (prod if inv is None else prod[..., inv])
+        i, f, g, o = gates.split(hidden, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys), c
+
+
 @functools.lru_cache(maxsize=None)
 def _h128_facts(device, kernel: str) -> dict:
-    """{R: clusters of the tile the card holds at once} of the H = 128
-    `kernel` ("b2" or "fwd") on the device."""
+    """{(R, C): clusters of the tile the card holds at once} of the
+    H = 128 `kernel` ("b2" or "fwd") on the device."""
     lib = _build.load_library()
     out = {}
-    for r in H128_TILE_COST:
-        info = (ctypes.c_int * 5)()
-        _build.check(lib.bilstm_h128_info(r, kernel == "fwd", info),
+    for r, c in H128_TILE_COST:
+        info = (ctypes.c_int * 6)()
+        _build.check(lib.bilstm_h128_info(r, c, kernel == "fwd", info),
                      "bilstm_h128_info")
-        out[r] = info[4]
+        out[(r, c)] = info[4]
     return out
 
 
-def tile_rows_h128(n: int, nd: int, device, kernel: str) -> int:
-    """Rows a cluster of the H = 128 `kernel` ("b2" or "fwd") takes for n
-    rows and nd directions: the tile whose clusters run in the fewest
-    waves times its cost a wave (H128_TILE_COST); on a tie the smaller
-    tile."""
-    held = _h128_facts(device, kernel)
+def h128_waves(n: int, nd: int, tile, held: dict) -> int:
+    """Waves of clusters of the tile (R, C) for n rows and nd directions,
+    when the card holds held[tile] of them at once."""
+    r, _ = tile
+    return -(-nd * -(-n // r) // max(1, held[tile]))
 
-    def time(r):
-        return -(-nd * -(-n // r) // max(1, held[r])) * H128_TILE_COST[r]
-    return min(sorted(H128_TILE_COST), key=time)
+
+def choose_tile_h128(n: int, nd: int, held: dict) -> tuple:
+    """The tile (R, C) whose clusters run in the least time, taken as
+    their waves times the tile's cost a wave (H128_TILE_COST); on a tie
+    the first in sorted order (fewer rows, then smaller clusters)."""
+    return min(sorted(H128_TILE_COST), key=lambda tile: (
+        h128_waves(n, nd, tile, held) * H128_TILE_COST[tile]))
+
+
+def tile_h128(n: int, nd: int, device, kernel: str) -> tuple:
+    """(R, C) that a launch of the H = 128 `kernel` ("b2" or "fwd") takes
+    for n rows and nd directions on the device: `choose_tile_h128` with
+    the card's occupancy."""
+    return choose_tile_h128(n, nd, _h128_facts(device, kernel))
 
 
 def bilstm_scan_h128_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
@@ -292,8 +370,7 @@ def bilstm_scan_h128_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = lib.bilstm_scan_h128_f32(xp.data_ptr(), w_hh.data_ptr(),
                                   ys.data_ptr(), c_t.data_ptr(), t_len, b,
-                                  tile_rows_h128(b, 2, xp.device, "b2"),
-                                  stream)
+                                  *tile_h128(b, 2, xp.device, "b2"), stream)
     _build.check(rc, "bilstm_scan_h128_f32")
     bilstm_scan_h128_cuda.launches += 1
     return ys, c_t
@@ -392,7 +469,7 @@ def bilstm_train_fwd_h128_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
     rc = lib.bilstm_train_fwd_h128_f32(
         xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), y.data_ptr(),
         _ptr(cs), c_t.data_ptr(), t_len, nd, n,
-        tile_rows_h128(n, nd, xp.device, "fwd"), stream)
+        *tile_h128(n, nd, xp.device, "fwd"), stream)
     _build.check(rc, "bilstm_train_fwd_h128_f32")
     bilstm_train_fwd_h128_cuda.launches += 1
     return y, c_t, cs

@@ -1,6 +1,6 @@
 """The training scan kernels at every tile size, on one GPU.
 
-    python3 -m lookoncetohear_tpu_torch.scan_sweep [--out FILE]
+    python3 -m lookoncetohear_tpu_torch.scan_sweep [--h128] [--out FILE]
 
 For each shape (T, D, N) of the committed training configs' scans (TSE
 intra [97, 2, 5000] and inter [625, 1, 776] from a carried state,
@@ -13,14 +13,16 @@ backward (`bilstm_train_bwd_f32`) launched through their C entries at
 each R, the median device time of REPS launches by CUDA events, each
 output's largest difference from the plain version, and the kernels for
 which the wrapper picks that R (`ops/bilstm_scan.py::tile_rows`).
-Then the H = 128 kernels (`csrc/bilstm_scan.cu`, 2-CTA clusters of R
-rows) at the reference's default `Net`'s scans (B2 at its 64-stream
-step [141, 2, 64] and at the full forward's [141, 2, 500] and the
-eval's batch of 4 [141, 2, 2000]; the training forward at the full
-forward's inter-time scan (500, 1, 141) and the eval's (500, 1, 564),
-from a carried state): each tile's build and the clusters the card holds
-at once, its median device time, its largest difference from the plain
-version, and whether `tile_rows_h128` picks it.
+Then the H = 128 kernels (`csrc/bilstm_scan.cu`, tiles of R rows over
+clusters of C CTAs, the product on the tensor cores) at the reference's
+default `Net`'s scans (B2 at its 64-stream step [141, 2, 64], the full
+forward's [141, 2, 500] and the eval's batch of 4 [141, 2, 2000]; the
+training forward at the full forward's inter-time scan (500, 1, 141),
+the eval's (500, 1, 564) and the training step's at 8 x 5 s, (141, 2,
+4000) and (500, 1, 1128), from a carried state where D = 1, without cs):
+each tile's build and the clusters the card holds at once, its median
+device time, its largest difference from the plain version, and whether
+`tile_h128` picks it (`--h128`: only these).
 Random inputs made on the card from a seed. Prints one JSON object per
 measurement, each with the card's name and power limit, and writes them
 to --out if given.
@@ -40,8 +42,8 @@ import torch
 from lookoncetohear_tpu_torch import _build
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (
     H128_TILE_COST, TRAIN_TILE_COST, bilstm_scan_reference,
-    bilstm_train_backward_reference, bilstm_train_reference, tile_rows,
-    tile_rows_h128)
+    bilstm_train_backward_reference, bilstm_train_reference, tile_h128,
+    tile_rows)
 from lookoncetohear_tpu_torch.timing import device_ms
 
 SHAPES = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
@@ -52,15 +54,19 @@ SHAPES = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
 H128_SHAPES = {"b2_serving": (141, 2, 64), "b2_full_forward": (141, 2, 500),
                "b2_eval": (141, 2, 2000),
                "fwd_full_forward_inter": (500, 1, 141),
-               "fwd_eval_inter": (500, 1, 564)}
+               "fwd_eval_inter": (500, 1, 564),
+               "fwd_train_intra": (141, 2, 4000),
+               "fwd_train_inter": (500, 1, 1128)}
 REPS = 10  # timed launches of each kernel at each tile and shape
 INFO = ("threads", "smem_bytes", "registers", "spill_bytes", "blocks_per_sm")
 INFO_H128 = ("threads", "smem_bytes", "registers", "spill_bytes",
-             "clusters_held")
+             "clusters_held", "ctas_per_sm")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--h128", action="store_true",
+                    help="only the H = 128 kernels")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -77,6 +83,20 @@ def main() -> int:
         rows.append(kw)
         print(json.dumps(kw), flush=True)
 
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    stream = torch.cuda.current_stream().cuda_stream
+    if not args.h128:
+        sweep_train(lib, emit, dev, g, stream)
+    sweep_h128(lib, emit, dev, g, stream)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return 0
+
+
+def sweep_train(lib, emit, dev, g, stream):
+    """The H = 64 training kernels at every tile and SHAPES."""
     tiles = sorted({r for c in TRAIN_TILE_COST.values() for r in c})
     for r in tiles:
         for bwd in (0, 1):
@@ -84,9 +104,6 @@ def main() -> int:
             _build.check(lib.bilstm_train_info(r, bwd, out), "info")
             emit(kernel="bilstm_train_bwd" if bwd else "bilstm_train_fwd",
                  rows=r, **dict(zip(INFO, out)))
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(5)
-    stream = torch.cuda.current_stream().cuda_stream
     for key, (t_, nd, n) in SHAPES.items():
         def r_(*shape, k=0.5):
             return torch.randn(shape, generator=g, device=dev) * k
@@ -130,21 +147,16 @@ def main() -> int:
                          if r == tile_rows(n, nd, dev, k)])
         del xp, w, dy, dxp, y, cs, want_f, want_b
         torch.cuda.empty_cache()
-    sweep_h128(lib, emit, dev, g, stream)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
-    return 0
 
 
 def sweep_h128(lib, emit, dev, g, stream):
-    """The H = 128 kernels at every cluster tile and H128_SHAPES."""
+    """The H = 128 kernels at every tile (R, C) and H128_SHAPES."""
     for kernel in ("b2", "fwd"):
-        for r in H128_TILE_COST:
-            out = (ctypes.c_int * 5)()
-            _build.check(lib.bilstm_h128_info(r, kernel == "fwd", out),
+        for tile in H128_TILE_COST:
+            out = (ctypes.c_int * 6)()
+            _build.check(lib.bilstm_h128_info(*tile, kernel == "fwd", out),
                          "bilstm_h128_info")
-            emit(kernel=f"bilstm_h128_{kernel}", rows=r,
+            emit(kernel=f"bilstm_h128_{kernel}", tile=list(tile),
                  **dict(zip(INFO_H128, out)))
     for key, (t_, nd, n) in H128_SHAPES.items():
         kernel = key.split("_")[0]
@@ -157,28 +169,29 @@ def sweep_h128(lib, emit, dev, g, stream):
             want = bilstm_scan_reference(xp, w)
             got = tuple(torch.empty_like(e) for e in want)
 
-            def run(r, i):
+            def run(tile, i):
                 _build.check(lib.bilstm_scan_h128_f32(
-                    p(xp), p(w), p(got[0]), p(got[1]), t_, n, r, stream),
-                    "bilstm_scan_h128_f32")
+                    p(xp), p(w), p(got[0]), p(got[1]), t_, n, *tile,
+                    stream), "bilstm_scan_h128_f32")
         else:
             xp, w = r_(n, t_, nd * 512), r_(nd, 128, 512, k=0.2)
-            h0, c0 = r_(nd, n, 128), r_(nd, n, 128)
+            h0, c0 = (r_(nd, n, 128), r_(nd, n, 128)) if nd == 1 \
+                else (None, None)
             want = bilstm_train_reference(xp, w, torch.float32, h0, c0)
             got = tuple(torch.empty_like(e) for e in want)
 
-            def run(r, i):
+            def run(tile, i):
                 _build.check(lib.bilstm_train_fwd_h128_f32(
                     p(xp), p(w), p(h0), p(c0), p(got[0]), None, p(got[1]),
-                    t_, nd, n, r, stream), "bilstm_train_fwd_h128_f32")
-        for r in H128_TILE_COST:
-            run(r, 0)
+                    t_, nd, n, *tile, stream), "bilstm_train_fwd_h128_f32")
+        for tile in H128_TILE_COST:
+            run(tile, 0)
             torch.cuda.synchronize()
             err = max((a - b).abs().max().item() for a, b in zip(got, want))
-            emit(shape=key, T=t_, D=nd, N=n, rows=r,
-                 us=device_ms(lambda i: run(r, i), REPS) * 1e3,
+            emit(shape=key, T=t_, D=nd, N=n, tile=list(tile),
+                 us=device_ms(lambda i: run(tile, i), REPS) * 1e3,
                  max_abs_err=err,
-                 picked=r == tile_rows_h128(n, nd, dev, kernel))
+                 picked=tile == tile_h128(n, nd, dev, kernel))
         del xp, w, want, got
         torch.cuda.empty_cache()
 

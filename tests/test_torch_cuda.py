@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from lookoncetohear_tpu_torch.ops.bilstm_scan import (bilstm_scan_cuda,
+from lookoncetohear_tpu_torch.ops.bilstm_scan import (H128_TILE_COST,
+                                                      bilstm_scan_cuda,
                                                       bilstm_scan_reference)
 from lookoncetohear_tpu_torch.ops.attn_step import (
     VARIANTS, attention_step_cuda, attention_step_reference)
@@ -500,15 +501,14 @@ def test_bilstm_train_kernels_match_plain(dev, t, nd, b):
                                    atol=tol * max(1.0, e.abs().max().item()))
 
 
-H128_TILES = (2, 4, 8)
-
-
-@pytest.mark.parametrize("t,b", [(141, 64), (141, 500), (141, 13)])
+@pytest.mark.parametrize("t,b", [(141, 64), (141, 500), (141, 13),
+                                 (1, 64), (2, 13), (3, 9)])
 def test_bilstm_h128_kernel_matches_plain(dev, t, b):
-    """B2 at H = 128 (2-CTA clusters) at the default Net's serving and
-    full-forward rows and a count no tile divides, through the wrapper
-    and through the C entry at every tile of R rows: 141 steps at atol
-    2e-5, as B2 at H = 64."""
+    """B2 at H = 128 (clusters of C CTAs, tiles of R rows) at the default
+    Net's serving and full-forward rows, a count no tile divides and
+    scans of 1 to 3 steps (the hand-over's first phases), through the
+    wrapper and through the C entry at every tile (R, C): at atol 2e-5,
+    as B2 at H = 64."""
     from lookoncetohear_tpu_torch import _build
     from lookoncetohear_tpu_torch.ops.bilstm_scan import \
         bilstm_scan_h128_cuda
@@ -520,11 +520,11 @@ def test_bilstm_h128_kernel_matches_plain(dev, t, b):
     got = [bilstm_scan_cuda(xp, w_hh)]
     assert bilstm_scan_h128_cuda.launches == before + 1
     lib = _build.load_library()
-    for r in H128_TILES:
+    for tile in H128_TILE_COST:
         ys, c_t = torch.empty_like(rys), torch.empty_like(rc)
         _build.check(lib.bilstm_scan_h128_f32(
             xp.data_ptr(), w_hh.data_ptr(), ys.data_ptr(), c_t.data_ptr(),
-            t, b, r, torch.cuda.current_stream().cuda_stream),
+            t, b, *tile, torch.cuda.current_stream().cuda_stream),
             "bilstm_scan_h128_f32")
         got.append((ys, c_t))
     torch.cuda.synchronize()
@@ -535,14 +535,17 @@ def test_bilstm_h128_kernel_matches_plain(dev, t, b):
 
 @pytest.mark.parametrize("t,nd,n,carried", [(500, 1, 141, True),
                                             (97, 2, 37, False),
-                                            (60, 2, 9, True)])
+                                            (60, 2, 9, True),
+                                            (500, 1, 564, True),
+                                            (1, 2, 9, True),
+                                            (2, 1, 17, False)])
 def test_bilstm_train_fwd_h128_matches_plain(dev, t, nd, n, carried):
     """The training forward at H = 128 in the models' layouts: the full
-    forward's inter-time scan (T=500, D=1, N=141) from (h0, c0), both
-    directions from zero and from (h0, c0), at every tile; y, c_T and
-    every c against the plain version at 2e-5 of the peak up to 97
-    steps, 1e-4 beyond (as at H = 64); without cs the same y and c_T bit
-    for bit."""
+    forward's and the eval's inter-time scans (T=500, D=1, N=141 and
+    564) from (h0, c0), both directions from zero and from (h0, c0), and
+    scans of 1 and 2 steps, at every tile (R, C); y, c_T and every c
+    against the plain version at 2e-5 of the peak up to 97 steps, 1e-4
+    beyond (as at H = 64); without cs the same y and c_T bit for bit."""
     from lookoncetohear_tpu_torch import _build
     from lookoncetohear_tpu_torch.ops.bilstm_scan import (
         bilstm_scan_train_cuda, bilstm_train_fwd_h128_cuda,
@@ -560,11 +563,11 @@ def test_bilstm_train_fwd_h128_matches_plain(dev, t, nd, n, carried):
     assert bilstm_train_fwd_h128_cuda.launches == before + 2
     lib = _build.load_library()
     p = lambda v: None if v is None else v.data_ptr()
-    for rows in H128_TILES:
+    for tile in H128_TILE_COST:
         out = tuple(torch.empty_like(e) for e in want)
         _build.check(lib.bilstm_train_fwd_h128_f32(
             p(xp), p(w), p(h0), p(c0), p(out[0]), p(out[2]), p(out[1]),
-            t, nd, n, rows, torch.cuda.current_stream().cuda_stream),
+            t, nd, n, *tile, torch.cuda.current_stream().cuda_stream),
             "bilstm_train_fwd_h128_f32")
         runs.append(out)
     torch.cuda.synchronize()
