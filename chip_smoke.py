@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (one nvcc call) and prints what ptxas
-reports for each (registers, shared memory, spills), holds each kernel
+Builds the port's CUDA kernels (one nvcc a source, all started
+together) and prints what ptxas reports for each (registers, shared
+memory, spills), holds each kernel
 against its plain PyTorch version at the serving shapes (the BiLSTM
 scan also at the full forward's 625 rows and at the enrollment net's
 two shapes, the int8 ring step over w + 3 chained calls from one
@@ -86,7 +87,12 @@ Then the reference's default `Net()` (6 blocks, H=128, no attention,
 seeded weights: `default_net_phase`), on the H=128 kernels of
 `csrc/bilstm_scan.cu`: both held to their plain versions, the engine
 on the GPU against the CPU, as a CUDA graph against eager, the full
-forward against the CPU and the streamed engine, and each timed.
+forward against the CPU and the streamed engine, and each timed; then
+the same `Net` in training (`default_net_training_phase`): the H=128
+backward against its plain version at every tile, one `TSETask` step
+on the card against the CPU's float64 through the H=128 training
+forward and backward, and the step at 8 x 5 s timed with and without
+every block checkpointed.
 The rest of the JAX package, each through its entry point: the motion
 renderer's build (after the kernels'); `MultiDeviceEngine`, two graph
 engines of 32 streams on the one card against one of 64, and
@@ -301,12 +307,31 @@ H128_SCANS = {"serving": 64, "full_forward": 500, "tail": 13}
 H128_TRAIN = {"full_forward_inter": (500, 1, 141, True),
               "both_directions": (141, 2, 64, False),
               "eval_inter": (500, 1, 564, True)}
+# the default Net in training (`default_net_training_phase`): the model
+# built by TSETask from configs/tsh_synthetic_5k.json with the `Net`
+# class defaults as its model_params; one step on the card against the
+# CPU over DEFAULT_TRAIN_CHECK (rows, seconds), DEFAULT_TRAIN_STEPS timed
+# steps at the config's 8 x 5 s, with and without every block
+# checkpointed; the H=128 backward against its plain version (T, D, N,
+# from a carried state) at that step's two scans, a row count no tile
+# divides and scans of 1-3 steps
+DEFAULT_NET_PARAMS = dict(embed_dim=256, stft_chunk_size=160,
+                          stft_pad_size=120, num_ch=2, D=64, L=0, I=1, J=1,
+                          B=6, H=128, use_attn=False, lookahead=True,
+                          local_atten_len=100, chunk_causal=False)
+DEFAULT_TRAIN_CHECK = (2, 0.5)
+DEFAULT_TRAIN_STEPS = 3
+H128_BWD_SCANS = {"train_intra": (141, 2, 4000, False),
+                  "train_inter": (500, 1, 1128, True),
+                  "tail": (141, 2, 13, True), "T=1": (1, 2, 9, True),
+                  "T=2": (2, 1, 17, False), "T=3": (3, 2, 5, True)}
 # counter name -> the kernel's name in a profiler trace (or the parts
 # that name must all hold: the H=128 kernels' names carry their tile)
 TRACE_NAMES = {
     "bilstm_scan": "bilstm_scan_kernel<64, false>",
     "bilstm_scan_h128": ("bilstm_h128_mma_kernel<", ", false>"),
     "bilstm_scan_fwd_train_h128": ("bilstm_h128_mma_kernel<", ", true>"),
+    "bilstm_scan_bwd_train_h128": "bilstm_h128_bwd_kernel<",
     "bilstm_scan_fwd_train": "bilstm_train_fwd_kernel",
     "bilstm_scan_bwd": "bilstm_train_bwd_kernel",
     "ring_int8_step": "ring_int8_step_kernel<__nv_bfloat16>",
@@ -315,6 +340,7 @@ TRACE_NAMES = {
     "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>"}
 PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_train_fwd_kernel",
                 "bilstm_train_bwd_kernel", "bilstm_h128_mma_kernel",
+                "bilstm_h128_bwd_kernel",
                 "ring_int8_step_kernel", "attn_step_kernel")
 # traces of a profile at most: eager-engine traces holding 29 of 10
 # steps' 30 B2 launches came back in two runs of this script
@@ -835,7 +861,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             f"{cli_secs['TSETask, --prerender (reads)']:.1f} s reading it, "
             f"{cli_secs['TSETask']:.1f} s uncached (\"path: trainer CLI, "
             f"reference configs\") [{smi}]")
-    phase("path: trainer CLI, --prerender", 100, prerender_cli, grad=True)
+    phase("path: trainer CLI, --prerender", 90, prerender_cli, grad=True)
 
     def moving_sources():
         """The native renderer on the card's host: the known-delay case
@@ -1540,6 +1566,310 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
         f"{min(ms):.2f}-{max(ms):.2f}) [{smi}]")
 
 
+class StepOnce:
+    """A training step in the shape `profile_steps` drives."""
+
+    def __init__(self, trainer, batch):
+        self.trainer, self.batch = trainer, batch
+
+    def step(self, _):
+        self.trainer.train_step(self.batch, 0)
+
+
+def default_net_training_phase(torch, smi, res, launch_counts,
+                               reset_counts, read_counts, expect_counts):
+    """The reference's default `Net` in training: `TSETask` with the `Net`
+    class defaults (DEFAULT_NET_PARAMS: 6 blocks, H = 128, no attention)
+    and everything else from configs/tsh_synthetic_5k.json, seeded
+    weights; every gradient of an LSTM through the H = 128 backward of
+    `csrc/bilstm_scan.cu`:
+      * what ptxas reported for the backward, and each of its tiles (R
+        rows over clusters of 8 CTAs);
+      * the backward against its plain version at the training step's
+        scans at 8 x 5 s, (141, 2, 4000) and (500, 1, 1128) from (h0,
+        c0), a row count no tile divides and scans of 1-3 steps, through
+        its wrapper and its C entry at every tile: dxp, dh0, dc0 within
+        TOL_LSTM of max(1, peak) up to 141 steps, TOL_LSTM_LONG at 500;
+      * times by CUDA events at the two training scans: the backward and
+        the training forward beside the plain backward and cuDNN's
+        `nn.LSTM(64, 128)` forward and forward + backward (bidirectional
+        at the intra scan), and B2 at the eval's [141, 2, 2000] beside
+        cuDNN's forward; bounds as in `default_net_phase`;
+      * one step (loss and backward) on the card against the CPU over
+        DEFAULT_TRAIN_CHECK (2 x 0.5 s of the synthetic train split), TF32
+        off: the loss within TOL_TRAIN_LOSS of the CPU's float32 run,
+        every gradient within TOL_TRAIN_GRAD of max(peak, floor) of its
+        float64 run; 6 + 6 training forwards and 6 + 6 backwards at
+        H = 128 and no other kernel of the port;
+      * `Trainer.train_step` (loss, backward, clip, Adam) at the config's
+        8 x 5 s: ms a step (median after the first), peak GB and a
+        profile (busy share), keeping every activation and with every
+        block checkpointed (`Net(remat=True)`'s switch); a step that runs
+        out of memory is recorded with the size at which it did."""
+    import ctypes
+    from lookoncetohear_tpu_torch import _build
+    from lookoncetohear_tpu_torch import utils as port_utils
+    from lookoncetohear_tpu_torch.data.loader import collate
+    from lookoncetohear_tpu_torch.ops.bilstm_scan import (
+        H128_BWD_TILE_COST, bilstm_scan_bwd_cuda, bilstm_scan_cuda,
+        bilstm_scan_train_cuda, bilstm_train_backward_reference, tile_h128)
+    from lookoncetohear_tpu_torch.timing import device_ms, wall_ms
+    from lookoncetohear_tpu_torch.train.trainer import (Trainer, build_task,
+                                                        to_device)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = (lambda v: None if v is None else v.data_ptr())  # noqa: E731
+
+    def rnd(*shape, k=0.5):
+        return torch.randn(shape, generator=g, device=dev) * k
+
+    lines = _build.last_build.get("ptxas", [])
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "bilstm_h128_bwd" in line:
+            for shown in lines[i:i + 4]:
+                log(f"  {shown}")
+    for tile in H128_BWD_TILE_COST:
+        out = (ctypes.c_int * 6)()
+        _build.check(lib.bilstm_h128_info(*tile, 2, out), "bilstm_h128_info")
+        log(f"  H=128 backward, tile of {tile[0]} rows over {tile[1]} CTAs: "
+            f"{out[0]} threads, {out[2]} registers, {out[3]} B spilled, "
+            f"{out[1]} B shared memory, {out[4]} clusters at once, "
+            f"{out[5]} CTAs an SM")
+
+    # the backward against its plain version
+    worst, scans = 0.0, {}
+    for key, (t_, nd, n, carried) in H128_BWD_SCANS.items():
+        xp, w_hh = rnd(n, t_, nd * 512), rnd(nd, 128, 512, k=0.2)
+        h0, c0 = (rnd(nd, n, 128), rnd(nd, n, 128)) if carried \
+            else (None, None)
+        dy, dct = rnd(n, t_, nd * 128, k=1.0), rnd(nd, n, 128, k=1.0)
+        y, _, cs = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
+        args = (xp, w_hh, h0, c0, y, cs, dy, dct)
+        want = bilstm_train_backward_reference(*args)
+        runs = [bilstm_scan_bwd_cuda(*args)]
+        for tile in H128_BWD_TILE_COST:
+            out = tuple(torch.empty_like(e) for e in want)
+            _build.check(lib.bilstm_train_bwd_h128_f32(
+                *map(ptr, (*args, *out)), t_, nd, n, *tile, stream),
+                "bilstm_train_bwd_h128_f32")
+            runs.append(out)
+        torch.cuda.synchronize()
+        tol = TOL_LSTM if t_ <= 141 else TOL_LSTM_LONG
+        err = max((a - e).abs().max().item() / max(1.0, e.abs().max().item())
+                  for run in runs for a, e in zip(run, want))
+        log(f"  backward at H=128 {key} (T={t_}, D={nd}, N={n}"
+            f"{', from h0/c0' if carried else ''}), tile "
+            f"{tile_h128(n, nd, dev, 'bwd')} and through the C entry at "
+            f"every tile: max|kernel - plain| / max(1, peak) over dxp, dh0, "
+            f"dc0 = {err:.3e} (tolerance {tol})")
+        if not (err <= tol and all(torch.isfinite(a).all()
+                                   for run in runs for a in run)):
+            raise AssertionError(f"backward at H=128 {key} differs: {err}")
+        worst = max(worst, err)
+        if key.startswith("train"):
+            scans[key] = args
+    res["bilstm_scan_bwd_train_h128"] = dict(max_abs_err=worst)
+
+    # times: the kernels beside the plain backward and cuDNN
+    for key, args in scans.items():
+        xp, w_hh, h0, c0, y, cs, dy, dct = args
+        n, t_, dg = xp.shape
+        nd = dg // 512
+        bwd = lambda i: bilstm_scan_bwd_cuda(*args)  # noqa: E731
+        fwd = lambda i: bilstm_scan_train_cuda(xp, w_hh, h0, c0)  # noqa
+        for _ in range(2):
+            bwd(0), fwd(0)
+        b_ms, f_ms = device_ms(bwd, 5), device_ms(fwd, 5)
+        p_ms = wall_ms(lambda i: bilstm_train_backward_reference(*args), 2)
+        lstm = torch.nn.LSTM(64, 128, batch_first=True,
+                             bidirectional=nd == 2).to(dev)
+        x_in = rnd(n, t_, 64).requires_grad_()
+        gy = rnd(n, t_, nd * 128, k=1.0)
+        hc = None if h0 is None else (h0, c0)
+        lf = lambda i: lstm(x_in, hc)  # noqa: E731
+        lfb = lambda i: lstm(x_in, hc)[0].backward(gy)  # noqa: E731
+        for _ in range(2):
+            lfb(0)
+        lf_ms, lfb_ms = device_ms(lf, 5), device_ms(lfb, 5)
+        del lstm, x_in, gy
+        n_state = nd * n * 128
+        seq = t_ * n_state
+        states = 0 if h0 is None else 2 * n_state
+        # each input read once, each output written once; two products a
+        # row, direction and step (+ the cell's elementwise work)
+        nbytes = 4 * (2 * xp.numel() + w_hh.numel() + 3 * seq + states
+                      + 3 * n_state)
+        mm_flops = t_ * nd * n * 2 * 2 * 128 * 512
+        ew_flops = t_ * n_state * 16
+        t_bytes = nbytes / PEAK_BYTES_S
+        t_ops = 3 * mm_flops / PEAK_TF32_FLOPS
+        row = dict(ms=b_ms, plain_ms=p_ms, library_ms=lfb_ms,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bound_f32_ms=max(t_bytes, (mm_flops + ew_flops)
+                                    / PEAK_F32_FLOPS) * 1e3,
+                   tile=list(tile_h128(n, nd, dev, "bwd")), fwd_ms=f_ms,
+                   fwd_tile=list(tile_h128(n, nd, dev, "fwd")),
+                   fwd_library_ms=lf_ms)
+        res[f"bilstm_scan_bwd_train_h128_{key}"] = row
+        if key == "train_intra":
+            res["bilstm_scan_bwd_train_h128"].update(row)
+        log(f"  backward at H=128 (T={t_}, D={nd}, N={n}), tile "
+            f"{row['tile']}: kernel {b_ms * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, three TF32 "
+            f"products; float32 FMAs {row['bound_f32_ms'] * 1e3:.1f} us), "
+            f"plain {p_ms * 1e3:.1f} us, cuDNN nn.LSTM(64, 128"
+            f"{', bidirectional' if nd == 2 else ''}) forward + backward "
+            f"{lfb_ms * 1e3:.1f} us; the training forward (cs saved), tile "
+            f"{row['fwd_tile']}: {f_ms * 1e3:.1f} us, cuDNN forward "
+            f"{lf_ms * 1e3:.1f} us [{smi}]")
+    del scans, args
+    with torch.no_grad():
+        xp, w_hh = rnd(141, 2, 2000, 512), rnd(2, 128, 512, k=0.2)
+        lstm = torch.nn.LSTM(64, 128, batch_first=True,
+                             bidirectional=True).to(dev)
+        x_in = rnd(2000, 141, 64)
+        for _ in range(2):
+            bilstm_scan_cuda(xp, w_hh), lstm(x_in)
+        b2_ms = device_ms(lambda i: bilstm_scan_cuda(xp, w_hh), 10)
+        l_ms = device_ms(lambda i: lstm(x_in), 10)
+        res["bilstm_scan_h128_eval"] = dict(ms=b2_ms, library_ms=l_ms)
+        log(f"  B2 at H=128 [141, 2, 2000, 512] (the eval's batch of 4 x "
+            f"5 s): kernel {b2_ms * 1e3:.1f} us, cuDNN nn.LSTM(64, 128, "
+            f"bidirectional) forward {l_ms * 1e3:.1f} us [{smi}]")
+        del xp, w_hh, lstm, x_in
+    torch.cuda.empty_cache()
+
+    # one step on the card against the CPU
+    hp = port_utils.Params(TSH_5K)
+    hp.pl_module_args = dict(hp.pl_module_args,
+                             model_params=DEFAULT_NET_PARAMS)
+
+    def host_batch(n, seconds):
+        args = dict(hp.train_data_args, duration=seconds)
+        ds = port_utils.import_attr(hp.train_dataset)(**args)
+        return collate([ds[i] for i in range(n)])
+
+    per_step = {"bilstm_scan_fwd_train_h128": 12,
+                "bilstm_scan_bwd_train_h128": 12}
+    host = host_batch(*DEFAULT_TRAIN_CHECK)
+    out = {}
+    for d, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                  ("cpu64", torch.float64)):
+        task = build_task(hp, seed=16)
+        model = task.model.to("cuda" if d == "cuda" else "cpu", dt)
+        if (model.tfgridnet.n_freqs, model.tfgridnet.n_layers,
+                model.tfgridnet.lstm_hidden_units, model.tfgridnet.use_attn,
+                model.tfgridnet.remat) != (141, 6, 128, False, False):
+            raise AssertionError("the model is not the default Net")
+        batch = {k: v.to(dt) if v.is_floating_point() else v
+                 for k, v in to_device(task.device_batch(host, train=True),
+                                       "cuda" if d == "cuda" else "cpu"
+                                       ).items()}
+        reset_counts()
+        with port_utils.full_float32():
+            loss, _ = task.loss_and_metrics(batch, 0)
+            loss.backward()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        out[d] = (loss.item(), {k: p.grad.cpu().double() for k, p in
+                                model.named_parameters()})
+        del task, model, batch, loss
+    expect_counts(counts, per_step, "default Net training step")
+    launch_counts["bilstm_scan_bwd_train_h128"] = counts[
+        "bilstm_scan_bwd_train_h128"]
+    (l_gpu, g_gpu), (l_cpu, _), (l_64, g_64) = (out[k] for k in (
+        "cuda", "cpu", "cpu64"))
+    if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= TOL_TRAIN_LOSS * max(
+            1.0, abs(l_cpu))):
+        raise AssertionError(f"default Net: loss {l_gpu} vs {l_cpu}")
+    floor = 1e-3 * max(v.abs().max().item() for v in g_64.values())
+    dev_worst, worst_name = 0.0, ""
+    for k, v in g_64.items():
+        ref = max(v.abs().max().item(), floor)
+        err = (g_gpu[k] - v).abs().max().item() / ref
+        if not (torch.isfinite(g_gpu[k]).all() and err <= TOL_TRAIN_GRAD):
+            raise AssertionError(f"default Net: grad {k} lies {err:.3e} of "
+                                 f"max(peak, floor) from float64")
+        if err >= dev_worst:
+            dev_worst, worst_name = err, k
+    log(f"  default Net TSETask, seeded, {DEFAULT_TRAIN_CHECK[0]} x "
+        f"{DEFAULT_TRAIN_CHECK[1]:g} s: loss GPU {l_gpu:.6f} CPU "
+        f"{l_cpu:.6f} float64 {l_64:.6f}; {len(g_64)} gradients, worst "
+        f"|GPU - float64| / max(peak, floor) {dev_worst:.3e} ({worst_name}; "
+        f"tolerance {TOL_TRAIN_GRAD}); launches: "
+        + ", ".join(f"{k} {counts[k]}" for k in per_step)
+        + ", no other kernel of the port")
+    del out, g_gpu, g_64
+
+    # the step at the config's batch of 8 x 5 s, with and without remat
+    host = host_batch(hp.batch_size, hp.train_data_args["duration"])
+    task = build_task(hp, seed=16)
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="port_default_") as tmp, \
+            port_utils.full_float32():
+        tr = Trainer(task, tmp, epochs=1, device=dev)
+        batch = to_device(task.device_batch(host, train=True), dev)
+        for remat in (False, True):
+            task.model.tfgridnet.remat = remat
+            label = "every block checkpointed" if remat else \
+                "every activation kept"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # what earlier phases still hold counts in the peak: logged
+            held_gb = torch.cuda.memory_allocated() / 1e9
+            ms, losses = [], []
+            try:
+                for _ in range(DEFAULT_TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = tr.train_step(batch, 0)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(m["loss"].item())
+            except torch.cuda.OutOfMemoryError as e:
+                gb = torch.cuda.max_memory_allocated() / 1e9
+                rows["remat" if remat else "plain"] = dict(
+                    out_of_memory=True, peak_gb=gb, held_gb=held_gb,
+                    error=str(e).splitlines()[0][:200])
+                log(f"  default Net train_step, {hp.batch_size} x "
+                    f"{hp.train_data_args['duration']:g} s, {label}: out of "
+                    f"memory with {gb:.2f} GB allocated at its peak ("
+                    f"{held_gb:.2f} GB held before the step): "
+                    f"{str(e).splitlines()[0][:160]} [{smi}]")
+                tr.opt.zero_grad(set_to_none=True)
+                continue
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"default Net: losses {losses}")
+            want = {"bilstm_scan_fwd_train_h128": 24 if remat else 12,
+                    "bilstm_scan_bwd_train_h128": 12}
+            prof = profile_steps(StepOnce(tr, batch), [None], torch, want,
+                                 absent=("RNN", "rnn", "LSTM", "lstm_cell"),
+                                 counters=(reset_counts, read_counts))
+            rows["remat" if remat else "plain"] = dict(
+                ms=float(np.median(ms[1:])), first_ms=ms[0], peak_gb=peak_gb,
+                held_gb=held_gb, losses=losses, **prof)
+            log(f"  default Net train_step, {hp.batch_size} x "
+                f"{hp.train_data_args['duration']:g} s, {label}: "
+                f"{np.median(ms[1:]):.1f} ms a step from call to synchronize "
+                f"(median of {len(ms) - 1} after the first, {ms[0]:.1f} ms "
+                f"first), peak {peak_gb:.2f} GB allocated ({held_gb:.2f} GB "
+                f"held before the step), busy share "
+                f"{prof['busy_share']:.3f}; loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f} [{smi}]")
+        task.model.tfgridnet.remat = False
+        del tr, batch
+    if "ms" not in rows.get("remat", {}):
+        raise AssertionError("the checkpointed step at 8 x 5 s did not run")
+    res["default_net"]["train_step"] = rows
+    del task
+    torch.cuda.empty_cache()
+
+
 def reference_tse(g, D=64, M=2, H=64, F=97, nh=4, S=2, E=256,
                   n_layers=3):
     """A random state_dict in the reference streaming TSE model's key
@@ -1639,8 +1969,8 @@ def main() -> int:
             TRAIN_TILE_COST, bilstm_scan_bwd_cuda, bilstm_scan_cuda,
             bilstm_scan_h128_cuda, bilstm_scan_reference,
             bilstm_scan_train_cuda, bilstm_train_backward_reference,
-            bilstm_train_fwd_h128_cuda, bilstm_train_reference,
-            scan_weight_grad, tile_rows)
+            bilstm_train_bwd_h128_cuda, bilstm_train_fwd_h128_cuda,
+            bilstm_train_reference, scan_weight_grad, tile_rows)
         from lookoncetohear_tpu_torch.ops.lstm import bidir_scan_inputs
         from lookoncetohear_tpu_torch.ops.ring_step import (
             arrival_counter, ring_attend_int8_step_cuda,
@@ -1677,6 +2007,7 @@ def main() -> int:
         bilstm_scan_bwd_cuda.launches = 0
         bilstm_scan_h128_cuda.launches = 0
         bilstm_train_fwd_h128_cuda.launches = 0
+        bilstm_train_bwd_h128_cuda.launches = 0
         ring_attend_int8_step_cuda.launches = 0
         attention_step_cuda.launches = 0
         for k in attn_names:
@@ -1689,6 +2020,8 @@ def main() -> int:
                     bilstm_scan_h128=bilstm_scan_h128_cuda.launches,
                     bilstm_scan_fwd_train_h128=(
                         bilstm_train_fwd_h128_cuda.launches),
+                    bilstm_scan_bwd_train_h128=(
+                        bilstm_train_bwd_h128_cuda.launches),
                     ring_int8_step=ring_attend_int8_step_cuda.launches,
                     **attention_step_cuda.variant_launches)
 
@@ -1712,7 +2045,7 @@ def main() -> int:
         return smi
     smi = phase("device", 10, device)
 
-    # ---- 2. build: one nvcc call for csrc/*.cu -------------------------
+    # ---- 2. build: one nvcc a csrc/*.cu, started together --------------
     def build():
         lib = _build.load_library()
         b = _build.last_build
@@ -1731,7 +2064,7 @@ def main() -> int:
                 log(f"  bilstm_train_{kname} tile of {r} rows: {out[0]} "
                     f"threads, {out[1]} B dynamic shared memory, {out[4]} "
                     "blocks per SM")
-    phase("build", 55, build)
+    phase("build", 30, build)
 
     def build_motion():
         """The moving-source renderer, compiled from
@@ -3213,29 +3546,15 @@ def main() -> int:
             f"the unwrapped run's [{smi}]")
     phase("path: DDP, world size 1", 80, ddp_one, grad=True)
 
-    class StepOnce:
-        """A training step in the shape `profile_steps` drives."""
-
-        def __init__(self, trainer, batch):
-            self.trainer, self.batch = trainer, batch
-
-        def step(self, _):
-            self.trainer.train_step(self.batch, 0)
-
     def step_with_remat(tr, batch, steps=3):
         """ms a step (median after the first) and peak GB of the same
-        training step with every GridNet block checkpointed (the JAX
-        package's `nn.remat`: the backward recomputes each block from
-        its input), for the trade the models make by keeping the
-        activations."""
-        import functools
-
-        from torch.utils.checkpoint import checkpoint
-        blocks = [m for m in tr.model.modules()
-                  if type(m).__name__.startswith("GridNetBlock")]
-        for m in blocks:
-            m.forward = functools.partial(
-                checkpoint, type(m).forward.__get__(m), use_reentrant=False)
+        training step with every GridNet block checkpointed (the models'
+        `remat`, the JAX package's `nn.remat`: the backward recomputes
+        each block from its input), for the trade the models make by
+        keeping the activations."""
+        trunks = [m for m in tr.model.modules() if hasattr(m, "remat")]
+        for m in trunks:
+            m.remat = True
         try:
             torch.cuda.reset_peak_memory_stats()
             ms = []
@@ -3248,8 +3567,8 @@ def main() -> int:
             return (float(np.median(ms[1:])),
                     torch.cuda.max_memory_allocated() / 1e9)
         finally:
-            for m in blocks:
-                del m.forward
+            for m in trunks:
+                m.remat = False
 
     def train_times():
         """Training steps at each config's batch of 8 x 5 s, from a
@@ -3354,15 +3673,19 @@ def main() -> int:
                     + ("forward" if kname.endswith("train") else
                        "forward + backward")
                     + f" {l_ms * 1e3:.1f} us [{smi}]")
-    phase("times: training", 35, train_times, grad=True)
+    phase("times: training", 33, train_times, grad=True)
 
     corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
                   launch_counts,
                   {name: res[f"train_{name}"]["ms"] for name, *_ in tasks})
 
-    phase("default Net (H=128, no attention)", 50,
+    phase("default Net (H=128, no attention)", 40,
           lambda: default_net_phase(torch, smi, res, launch_counts,
                                     reset_counts, read_counts, expect_counts))
+    phase("default Net training (H=128)", 46,
+          lambda: default_net_training_phase(
+              torch, smi, res, launch_counts, reset_counts, read_counts,
+              expect_counts), grad=True)
 
     def convert_phase():
         """Random state_dicts in the reference's key layout (the
@@ -3450,6 +3773,10 @@ def main() -> int:
                              "lookoncetohear_tpu/ops/pallas_lstm.py:59"),
         "bilstm_scan_fwd_train_h128": ("bilstm_scan.cu",
                                        "lookoncetohear_tpu/ops/lstm.py:108"),
+        # the backward of lstm_apply (:108) and lstm_apply_bidir (:130)
+        # at H=128
+        "bilstm_scan_bwd_train_h128": ("bilstm_scan.cu",
+                                       "lookoncetohear_tpu/ops/lstm.py:108"),
         "ring_int8_step": ("ring_int8_step.cu", f"{tpu}:334"),
         **{name: ("attn_step.cu", f"{tpu}:{129 if kvdt == torch.int8 else 54}")
            for (_, kvdt), name in VARIANTS.items()},
@@ -3468,7 +3795,10 @@ def main() -> int:
     log(f"EmbedNet: {json.dumps(res['enroll'])}")
     log(f"default Net: {json.dumps(res['default_net'])}")
     for k in [*(f"bilstm_scan_h128_{s}" for s in H128_SCANS),
-              *(f"bilstm_scan_fwd_train_h128_{s}" for s in H128_TRAIN)]:
+              "bilstm_scan_h128_eval",
+              *(f"bilstm_scan_fwd_train_h128_{s}" for s in H128_TRAIN),
+              *(f"bilstm_scan_bwd_train_h128_{s}" for s in H128_BWD_SCANS
+                if s.startswith("train"))]:
         log(f"{k}: {json.dumps(res[k])}")
     log("eval: " + json.dumps({
         m: {k: r[k] for k in ("max_dev", "means", "seconds")}

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` is compiled by ONE `nvcc` call into a shared library
-with a plain `extern "C"` interface, loaded with `ctypes`. No source
+Every `csrc/*.cu` is compiled by an `nvcc` of its own, all started
+together, and the objects are linked into one shared library with a
+plain `extern "C"` interface, loaded with `ctypes`. No source
 includes PyTorch's headers, so the build takes seconds, not minutes.
 The library's name carries a hash of the sources and flags, and it is
 written under `_build/` beside this file (listed in `.gitignore`).
@@ -17,11 +18,15 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# a shared library from sources in one call (the tools that build one
+# source alone use these too); build() compiles each source with them
+# less -shared, and links with -shared
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 240
@@ -43,6 +48,9 @@ _SIGNATURES = {
     "bilstm_scan_h128_f32": [_P] * 4 + [_I] * 4 + [_P],
     # xp, w_hh, h0, c0, y, cs, c_T, T, D, N, R, C, stream
     "bilstm_train_fwd_h128_f32": [_P] * 7 + [_I] * 5 + [_P],
+    # xp, w_hh, h0, c0, y, cs, dy, dc_T, dxp, dh0, dc0, T, D, N, R, C,
+    # stream
+    "bilstm_train_bwd_h128_f32": [_P] * 11 + [_I] * 5 + [_P],
     # R, C, train, int[6] out
     "bilstm_h128_info": [_I, _I, _I, _P],
     # d, out, n, stream
@@ -83,9 +91,19 @@ def _sources() -> list[Path]:
     return srcs
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands at once, each to NVCC_TIMEOUT_S; their completed
+    processes, in order."""
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        return list(pool.map(lambda c: subprocess.run(
+            c, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S),
+            cmds))
+
+
 def build() -> Path:
-    """Compile all sources (if this exact build is not on disk yet) and
-    return the library's path."""
+    """Compile all sources (if this exact build is not on disk yet), one
+    `nvcc` a source at once, link them, and return the library's
+    path."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs + sorted(CSRC.glob("*.cuh")):
@@ -98,19 +116,31 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    cmds = [[_nvcc(), *flags, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
+    try:
+        done = _run_all(cmds)
+        if all(p.returncode == 0 for p in done):
+            done += _run_all([link])
+        for p in done:
+            if p.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed ({p.returncode}): {' '.join(p.args)}\n"
+                    f"{p.stdout}\n{p.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
-    lines = (proc.stdout + proc.stderr).splitlines()
+    lines = "".join(p.stdout + p.stderr for p in done).splitlines()
     last_build.update(
-        seconds=secs, cached=False, path=str(lib), command=" ".join(cmd),
+        seconds=secs, cached=False, path=str(lib),
+        command=" && ".join(" ".join(c) for c in (*cmds, link)),
         ptxas=[ln for ln in lines if "ptxas" in ln or "spill" in ln])
     return lib
 

@@ -64,7 +64,12 @@ class DataLoader:
     """Epoch iterator: `shard_indices` (this rank's shard) -> batches of
     `batch_size` (the ragged tail dropped with `drop_last`) -> `collate`,
     rendered by `num_workers` fork-server workers as `batches` does.
-    `set_epoch` picks the epoch's shuffle."""
+    `set_epoch` picks the epoch's shuffle.
+
+    The workers persist across epochs, as the JAX package's pool does:
+    one `torch.utils.data.DataLoader` an instance, built at first use
+    with `persistent_workers`, whose batch sampler reads the epoch and
+    the `epoch_batches` cut at each pass. `close` stops them."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, num_workers: int = 0,
@@ -76,6 +81,8 @@ class DataLoader:
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.epoch = 0
+        self._max_batches = None
+        self._loader = None
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -99,18 +106,49 @@ class DataLoader:
     def epoch_batches(self, max_batches: int | None = None):
         """This epoch's first `max_batches` batches (all with None): only
         those are rendered."""
-        return iter(batches(self.dataset, num_workers=self.num_workers,
-                            batch_sampler=self._index_batches()[:max_batches]))
+        self._max_batches = max_batches
+        if self._loader is None:
+            self._loader = batches(self.dataset, num_workers=self.num_workers,
+                                   batch_sampler=_EpochSampler(self),
+                                   persistent_workers=self.num_workers > 0)
+        return iter(self._loader)
 
     def __iter__(self):
         return self.epoch_batches()
 
+    def close(self) -> None:
+        """Stop the worker processes, if any ran (a later pass starts
+        new ones). Only a loader with workers keeps an iterator."""
+        it = getattr(self._loader, "_iterator", None)
+        if it is not None:
+            it._shutdown_workers()
+        self._loader = None
+
+
+class _EpochSampler:
+    """The batch sampler of a `DataLoader`: at each pass the index
+    batches of its current epoch, cut to its `max_batches`."""
+
+    def __init__(self, dl: DataLoader):
+        self.dl = dl
+
+    def _batches(self) -> list:
+        return self.dl._index_batches()[:self.dl._max_batches]
+
+    def __iter__(self):
+        return iter(self._batches())
+
+    def __len__(self) -> int:
+        return len(self._batches())
+
 
 def batches(dataset, batch_size: int = 4, num_workers: int = 0,
-            batch_sampler=None) -> torch.utils.data.DataLoader:
+            batch_sampler=None, persistent_workers: bool = False
+            ) -> torch.utils.data.DataLoader:
     """The dataset in order, `batch_size` scenes per `collate`d batch
     (or the index lists of `batch_sampler`), rendered by `num_workers`
-    worker processes (0: in this process).
+    worker processes (0: in this process), kept from one pass to the
+    next with `persistent_workers`.
 
     Workers come from a fork server: a fresh single-threaded process
     that imports torch and this package once, of which each worker is a
@@ -126,7 +164,8 @@ def batches(dataset, batch_size: int = 4, num_workers: int = 0,
         else dict(batch_sampler=batch_sampler)
     return torch.utils.data.DataLoader(
         dataset, collate_fn=collate, num_workers=num_workers,
-        multiprocessing_context=ctx, **order)
+        multiprocessing_context=ctx, persistent_workers=persistent_workers,
+        **order)
 
 
 def stop_workers() -> None:

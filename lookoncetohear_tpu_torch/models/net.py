@@ -40,7 +40,9 @@ def mod_pad(x: torch.Tensor, chunk_size: int, pad: tuple[int, int]):
 
 class Net(nn.Module):
     """Streaming TSE network. Built on `device` ("cuda" by default;
-    raises without a card unless device="cpu" is passed)."""
+    raises without a card unless device="cpu" is passed). `remat`
+    checkpoints every GridNet block in training (the JAX package's
+    `remat`, default off here: see `StreamingTFGridNet`)."""
 
     def __init__(self, stft_chunk_size: int = 160, stft_pad_size: int = 120,
                  embed_dim: int = 256, num_ch: int = 2, D: int = 64,
@@ -48,7 +50,7 @@ class Net(nn.Module):
                  H: int = 128, use_attn: bool = False, lookahead: bool = True,
                  local_atten_len: int = 100, chunk_causal: bool = False,
                  num_src: int = 2, dir_head: bool = False,
-                 n_dir_bins: int = 33, device=None):
+                 n_dir_bins: int = 33, remat: bool = False, device=None):
         super().__init__()
         if I != 1 or J != 1:
             raise ValueError("streaming TF-GridNet uses emb_ks=emb_hs=1")
@@ -62,7 +64,7 @@ class Net(nn.Module):
             n_imics=num_ch, n_layers=B, lstm_hidden_units=H,
             attn_n_head=L, attn_approx_qk_dim=512, emb_dim=D,
             spk_emb_dim=embed_dim, local_atten_len=local_atten_len,
-            use_attn=use_attn, chunk_causal=chunk_causal)
+            use_attn=use_attn, chunk_causal=chunk_causal, remat=remat)
         # optional direction-of-arrival head: per-frame logits over
         # n_dir_bins from the frequency mean of the pre-deconv features
         self.dir_head, self.n_dir_bins = dir_head, n_dir_bins

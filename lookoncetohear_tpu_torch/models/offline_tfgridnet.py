@@ -11,8 +11,9 @@ Both unfolded BiLSTMs of a block go through the port's
 tensors in inference, the training kernels when a gradient is needed
 (the JAX package runs the same recurrence through `lax.scan`). Unlike
 the JAX package (`nn.remat`), no stage is recomputed in the backward
-(PERF.md). The T x T time attention is plain matmuls and a softmax, in
-the input's dtype, as in the JAX package.
+by default (PERF.md); a trunk's `remat` attribute checkpoints each
+block while a gradient is kept. The T x T time attention is plain
+matmuls and a softmax, in the input's dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lookoncetohear_tpu_torch.ops import stft as stft_ops
 from lookoncetohear_tpu_torch.ops.lstm import LSTM
@@ -159,6 +161,7 @@ class OfflineTFGridNetTrunk(nn.Module):
                  emb_dim: int = 64, emb_ks: int = 4, emb_hs: int = 1,
                  eps: float = 1e-5):
         super().__init__()
+        self.remat = False
         self.n_fft, self.stride, self.emb_dim = n_fft, stride, emb_dim
         f = n_fft // 2 + 1
         self.conv = nn.Conv2d(2 * n_imics, emb_dim, 3, padding=1)
@@ -174,7 +177,8 @@ class OfflineTFGridNetTrunk(nn.Module):
         spec = stft_ops.stft_center(x, self.n_fft, self.stride)  # [B,M,T,F]
         h = self.conv_norm(self.conv(torch.cat([spec.real, spec.imag], 1)))
         for blk in self.blocks:
-            h = blk(h)
+            h = checkpoint(blk, h, use_reentrant=False) \
+                if self.remat and torch.is_grad_enabled() else blk(h)
         return h
 
 

@@ -27,9 +27,11 @@ State is a dict of tensors like the JAX pytree. At T=1 the ring leaves
 of each block (k_buf, v_buf, the int8 scales, pos) are updated IN
 PLACE; every other leaf, and every leaf of a T>1 pass, is returned
 anew, so a T>1 pass writes no tensor that autograd saved. Unlike the
-JAX package (`nn.remat`), no block is recomputed in the backward: on
-an 80 GB H100 keeping the activations is the faster training step
-(PERF.md).
+JAX package (`nn.remat`), no block is recomputed in the backward by
+default: on an 80 GB H100 keeping the activations is the faster
+training step (PERF.md). `remat=True` checkpoints every block of a T>1
+pass that keeps a gradient (`torch.utils.checkpoint`), as the JAX
+package does, for a model whose activations do not fit.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lookoncetohear_tpu_torch.ops import stft as stft_ops
 from lookoncetohear_tpu_torch.ops.attention import (
@@ -340,8 +343,9 @@ class StreamingTFGridNet(nn.Module):
                  attn_approx_qk_dim: int = 512, emb_dim: int = 64,
                  spk_emb_dim: int = 256, local_atten_len: int = 50,
                  use_attn: bool = True, chunk_causal: bool = True,
-                 eps: float = 1e-5, t_ksize: int = 3):
+                 eps: float = 1e-5, t_ksize: int = 3, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.n_srcs, self.n_fft, self.stride = n_srcs, n_fft, stride
         self.n_imics, self.n_layers = n_imics, n_layers
         self.lstm_hidden_units = lstm_hidden_units
@@ -408,7 +412,11 @@ class StreamingTFGridNet(nn.Module):
         for i, blk in enumerate(self.blocks):
             if i == 1:
                 h = h * emb
-            h, blocks[i] = blk(h, blocks[i])
+            if self.remat and t > 1 and torch.is_grad_enabled():
+                h, blocks[i] = checkpoint(blk, h, blocks[i],
+                                          use_reentrant=False)
+            else:
+                h, blocks[i] = blk(h, blocks[i])
         new_state["blocks"] = blocks
 
         padded = torch.cat([state["deconv_buf"], h], dim=2)

@@ -21,8 +21,8 @@ The kernels (`csrc/bilstm_scan.cu`) take H = 64 (a block a row tile)
 and H = 128 (B2 and the training forward: a cluster of C = 4 or 8 CTAs
 a tile of R = 8 or 16 rows, W_hh's gate columns split over the cluster,
 the product on the tensor cores in TF32 with three products; the
-backward at H = 128 is not written yet, so a call at H = 128 that needs
-a gradient is refused on the card). Every other width is refused.
+backward on clusters of 8 CTAs, its dh carried by a reduce-scatter over
+the cluster). Every other width is refused.
 
 Everything runs in float32 on the card. A wrapper launches its kernel
 for CUDA tensors and uses the plain version only for CPU tensors.
@@ -40,7 +40,7 @@ from lookoncetohear_tpu_torch import _build
 # the hidden widths the kernels are instantiated for (B2 and the training
 # forward), and the backward's
 KERNEL_WIDTHS = (64, 128)
-BACKWARD_WIDTHS = (64,)
+BACKWARD_WIDTHS = (64, 128)
 # rows a block of each training kernel may take, and the relative time
 # of one wave of its blocks (every SM running as many as fit) a step:
 # fitted to `python3 -m lookoncetohear_tpu_torch.scan_sweep` on an H100
@@ -54,6 +54,15 @@ TRAIN_TILE_COST = {"fwd": {4: 2.1, 8: 3.75, 16: 6.4},
 # `scan_sweep` on an H100 at the default Net's B2, full-forward, eval and
 # training scans, where these costs pick the fastest tile
 H128_TILE_COST = {(8, 8): 1.0, (16, 8): 1.6, (8, 4): 1.04, (16, 4): 1.8}
+# the same for the H = 128 backward, whose clusters are of 8 CTAs: fitted
+# to `scan_sweep --h128` on an H100 at the default Net's training scans
+H128_BWD_TILE_COST = {(8, 8): 1.0, (16, 8): 1.43}
+
+
+def h128_tiles(kernel: str) -> dict:
+    """The tile cost table of the H = 128 `kernel` ("b2", "fwd" or
+    "bwd")."""
+    return H128_BWD_TILE_COST if kernel == "bwd" else H128_TILE_COST
 
 
 def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
@@ -85,12 +94,14 @@ def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
     return torch.stack(ys), c
 
 
-def bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs, dys, dc_t):
+def bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs, dys, dc_t,
+                                   matmul=torch.bmm):
     """Plain PyTorch version of the backward kernel: an explicit reverse
     loop that recomputes each step's gates from h_{t-1} (ys[t-1] or h0)
     and returns (dxp [T, D, B, 4H], dh0, dc0 [D, B, H]). h0, c0, dys
     and dc_t may be None (zero). dW_hh is not part of it (see
-    `scan_weight_grad`)."""
+    `scan_weight_grad`). `matmul` forms both products (h_prev W and
+    dgates W^T)."""
     t_len, nd, b, g4 = xp.shape
     hidden = g4 // 4
     zero = xp.new_zeros((nd, b, hidden))
@@ -101,7 +112,7 @@ def bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs, dys, dc_t):
     for t in range(t_len - 1, -1, -1):
         h_prev = ys[t - 1] if t > 0 else (zero if h0 is None else h0)
         c_prev = cs[t - 1] if t > 0 else (zero if c0 is None else c0)
-        gates = xp[t] + torch.bmm(h_prev, w_hh)
+        gates = xp[t] + matmul(h_prev, w_hh)
         i, f, g, o = gates.split(hidden, dim=-1)
         i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
         g = torch.tanh(g)
@@ -113,7 +124,7 @@ def bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs, dys, dc_t):
                             dc * i * (1.0 - g * g),
                             dh * tc * o * (1.0 - o)], dim=-1)
         dxp[t] = dgates
-        dh_next = torch.bmm(dgates, w_t)
+        dh_next = matmul(dgates, w_t)
         dc_next = dc * f
     return dxp, dh_next, dc_next
 
@@ -152,7 +163,8 @@ def bilstm_train_reference(xp, w_hh, dtype=torch.float32, h0=None, c0=None,
     return _from_scan(out[0]), out[1]
 
 
-def bilstm_train_backward_reference(xp, w_hh, h0, c0, y, cs, dy, dc_t):
+def bilstm_train_backward_reference(xp, w_hh, h0, c0, y, cs, dy, dc_t,
+                                    matmul=torch.bmm):
     """Plain version of the training backward in the models' layouts
     (as `bilstm_train_reference`; dy [N, T, D*H]): (dxp [N, T, D*4H],
     dh0, dc0 [D, N, H]), through `bilstm_scan_backward_reference`."""
@@ -160,7 +172,7 @@ def bilstm_train_backward_reference(xp, w_hh, h0, c0, y, cs, dy, dc_t):
     dxp, dh0, dc0 = bilstm_scan_backward_reference(
         scan_layout(xp, nd), w_hh, h0, c0, scan_layout(y, nd),
         scan_layout(cs, nd), None if dy is None else scan_layout(dy, nd),
-        dc_t)
+        dc_t, matmul)
     return _from_scan(dxp), dh0, dc0
 
 
@@ -321,16 +333,28 @@ def bilstm_scan_tf32x3_reference(xp, w_hh, h0=None, c0=None,
     return torch.stack(ys), c
 
 
+def bilstm_train_backward_tf32x3_reference(xp, w_hh, h0, c0, y, cs, dy,
+                                           dc_t, matmul=tf32x3_matmul):
+    """Plain PyTorch emulation of the H = 128 backward kernel's
+    arithmetic in the models' layouts of `bilstm_train_backward_reference`
+    (everything in float32): the gate recompute h_prev W and the carry
+    dgates W^T both by `tf32x3_matmul` (`matmul`, to try another
+    product). Returns (dxp, dh0, dc0)."""
+    f32 = (lambda v: None if v is None else v.float())  # noqa: E731
+    return bilstm_train_backward_reference(
+        *map(f32, (xp, w_hh, h0, c0, y, cs, dy, dc_t)), matmul=matmul)
+
+
 @functools.lru_cache(maxsize=None)
 def _h128_facts(device, kernel: str) -> dict:
     """{(R, C): clusters of the tile the card holds at once} of the
-    H = 128 `kernel` ("b2" or "fwd") on the device."""
+    H = 128 `kernel` ("b2", "fwd" or "bwd") on the device."""
     lib = _build.load_library()
     out = {}
-    for r, c in H128_TILE_COST:
+    for r, c in h128_tiles(kernel):
         info = (ctypes.c_int * 6)()
-        _build.check(lib.bilstm_h128_info(r, c, kernel == "fwd", info),
-                     "bilstm_h128_info")
+        _build.check(lib.bilstm_h128_info(r, c, ("b2", "fwd", "bwd").index(
+            kernel), info), "bilstm_h128_info")
         out[(r, c)] = info[4]
     return out
 
@@ -342,19 +366,21 @@ def h128_waves(n: int, nd: int, tile, held: dict) -> int:
     return -(-nd * -(-n // r) // max(1, held[tile]))
 
 
-def choose_tile_h128(n: int, nd: int, held: dict) -> tuple:
-    """The tile (R, C) whose clusters run in the least time, taken as
-    their waves times the tile's cost a wave (H128_TILE_COST); on a tie
-    the first in sorted order (fewer rows, then smaller clusters)."""
-    return min(sorted(H128_TILE_COST), key=lambda tile: (
-        h128_waves(n, nd, tile, held) * H128_TILE_COST[tile]))
+def choose_tile_h128(n: int, nd: int, held: dict,
+                     costs: dict = H128_TILE_COST) -> tuple:
+    """The tile (R, C) of `costs` whose clusters run in the least time,
+    taken as their waves times the tile's cost a wave; on a tie the
+    first in sorted order (fewer rows, then smaller clusters)."""
+    return min(sorted(costs), key=lambda tile: (
+        h128_waves(n, nd, tile, held) * costs[tile]))
 
 
 def tile_h128(n: int, nd: int, device, kernel: str) -> tuple:
-    """(R, C) that a launch of the H = 128 `kernel` ("b2" or "fwd") takes
-    for n rows and nd directions on the device: `choose_tile_h128` with
-    the card's occupancy."""
-    return choose_tile_h128(n, nd, _h128_facts(device, kernel))
+    """(R, C) that a launch of the H = 128 `kernel` ("b2", "fwd" or
+    "bwd") takes for n rows and nd directions on the device:
+    `choose_tile_h128` with the card's occupancy."""
+    return choose_tile_h128(n, nd, _h128_facts(device, kernel),
+                            h128_tiles(kernel))
 
 
 def bilstm_scan_h128_cuda(xp: torch.Tensor, w_hh: torch.Tensor):
@@ -480,7 +506,9 @@ bilstm_train_fwd_h128_cuda.launches = 0
 
 def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
     """Launch the backward: (dxp, dh0, dc0) as
-    `bilstm_train_backward_reference`."""
+    `bilstm_train_backward_reference`. At H = 128 it launches
+    `bilstm_train_bwd_h128_cuda`'s kernel, whose counter counts it;
+    `bilstm_scan_bwd_cuda.launches` counts the H = 64 kernel."""
     n, t_len, nd, hidden = _train_shapes(xp, w_hh, "bilstm_scan_bwd_cuda")
     seq, state = (n, t_len, nd * hidden), (nd, n, hidden)
     _check(xp, w_hh, "bilstm_scan_bwd_cuda", 4 * hidden, BACKWARD_WIDTHS,
@@ -488,6 +516,8 @@ def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
            dy=(dy, seq), dc_t=(dc_t, state))
     if y is None or cs is None:
         raise ValueError("bilstm_scan_bwd_cuda needs the forward's y and cs")
+    if hidden == 128:
+        return bilstm_train_bwd_h128_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t)
     dxp = torch.empty_like(xp)
     dh0 = torch.empty(state, device=xp.device, dtype=torch.float32)
     dc0 = torch.empty_like(dh0)
@@ -504,6 +534,30 @@ def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
 
 
 bilstm_scan_bwd_cuda.launches = 0
+
+
+def bilstm_train_bwd_h128_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
+    """Launch the backward at H = 128 (`csrc/bilstm_scan.cu`): (dxp, dh0,
+    dc0) as `bilstm_scan_bwd_cuda`, which checks its inputs and calls
+    this."""
+    n, t_len, dg = xp.shape
+    nd = dg // 512
+    dxp = torch.empty_like(xp)
+    dh0 = torch.empty((nd, n, 128), device=xp.device, dtype=torch.float32)
+    dc0 = torch.empty_like(dh0)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = lib.bilstm_train_bwd_h128_f32(
+        xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), y.data_ptr(),
+        cs.data_ptr(), _ptr(dy), _ptr(dc_t), dxp.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), t_len, nd, n, *tile_h128(n, nd, xp.device, "bwd"),
+        stream)
+    _build.check(rc, "bilstm_train_bwd_h128_f32")
+    bilstm_train_bwd_h128_cuda.launches += 1
+    return dxp, dh0, dc0
+
+
+bilstm_train_bwd_h128_cuda.launches = 0
 
 
 class BiLSTMScan(torch.autograd.Function):
@@ -545,24 +599,14 @@ def bilstm_scan_train(xp, w_hh, h0=None, c0=None):
     [N, T, D*H], c_T [D, N, H]), direction 1 over time T-1..0. On the
     card everything is cast to contiguous float32 first. When no input
     needs a gradient it runs the forward alone, and on the card saves
-    no cell states. On the card a width without a backward kernel
-    (BACKWARD_WIDTHS) is refused here, before the forward, when a
-    gradient is needed."""
+    no cell states."""
     needs_grad = torch.is_grad_enabled() and any(
         v is not None and v.requires_grad for v in (xp, w_hh, h0, c0))
     if xp.device.type == "cpu":
         if not needs_grad:
             return bilstm_train_reference(xp, w_hh, xp.dtype, h0, c0)
         return BiLSTMScan.apply(xp, w_hh, h0, c0)
-    hidden = w_hh.shape[-2]
-    check_width(hidden, "bilstm_scan_train")
-    if needs_grad and hidden not in BACKWARD_WIDTHS:
-        raise NotImplementedError(
-            f"bilstm_scan_train: a gradient at H={hidden} needs the "
-            f"backward kernel at H={hidden}, which is not yet ported (the "
-            f"card's backward takes H="
-            f"{' or '.join(map(str, BACKWARD_WIDTHS))}); run under "
-            "torch.no_grad() or on the CPU")
+    check_width(w_hh.shape[-2], "bilstm_scan_train")
     xp, w_hh = xp.float().contiguous(), w_hh.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
     c0 = None if c0 is None else c0.float().contiguous()

@@ -19,10 +19,11 @@ default `Net`'s scans (B2 at its 64-stream step [141, 2, 64], the full
 forward's [141, 2, 500] and the eval's batch of 4 [141, 2, 2000]; the
 training forward at the full forward's inter-time scan (500, 1, 141),
 the eval's (500, 1, 564) and the training step's at 8 x 5 s, (141, 2,
-4000) and (500, 1, 1128), from a carried state where D = 1, without cs):
-each tile's build and the clusters the card holds at once, its median
-device time, its largest difference from the plain version, and whether
-`tile_h128` picks it (`--h128`: only these).
+4000) and (500, 1, 1128), from a carried state where D = 1, without cs;
+the backward at those two training scans): each tile's build and the
+clusters the card holds at once, its median device time, its largest
+difference from the plain version, and whether `tile_h128` picks it
+(`--h128`: only these).
 Random inputs made on the card from a seed. Prints one JSON object per
 measurement, each with the card's name and power limit, and writes them
 to --out if given.
@@ -41,22 +42,23 @@ import torch
 
 from lookoncetohear_tpu_torch import _build
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (
-    H128_TILE_COST, TRAIN_TILE_COST, bilstm_scan_reference,
-    bilstm_train_backward_reference, bilstm_train_reference, tile_h128,
-    tile_rows)
+    TRAIN_TILE_COST, bilstm_scan_reference, bilstm_train_backward_reference,
+    bilstm_train_reference, h128_tiles, tile_h128, tile_rows)
 from lookoncetohear_tpu_torch.timing import device_ms
 
 SHAPES = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
           "embed_intra": (62, 2, 10008), "embed_inter": (1248, 2, 520),
           "full_forward_inter": (625, 1, 97), "eval_inter": (625, 1, 388)}
-# the H = 128 kernels' shapes: B2 [T, 2, B]; the training forward
-# (T, D, N) from a carried state
+# the H = 128 kernels' shapes: B2 [T, 2, B]; the training forward and
+# the backward (T, D, N) from a carried state where D = 1
 H128_SHAPES = {"b2_serving": (141, 2, 64), "b2_full_forward": (141, 2, 500),
                "b2_eval": (141, 2, 2000),
                "fwd_full_forward_inter": (500, 1, 141),
                "fwd_eval_inter": (500, 1, 564),
                "fwd_train_intra": (141, 2, 4000),
-               "fwd_train_inter": (500, 1, 1128)}
+               "fwd_train_inter": (500, 1, 1128),
+               "bwd_train_intra": (141, 2, 4000),
+               "bwd_train_inter": (500, 1, 1128)}
 REPS = 10  # timed launches of each kernel at each tile and shape
 INFO = ("threads", "smem_bytes", "registers", "spill_bytes", "blocks_per_sm")
 INFO_H128 = ("threads", "smem_bytes", "registers", "spill_bytes",
@@ -151,11 +153,12 @@ def sweep_train(lib, emit, dev, g, stream):
 
 def sweep_h128(lib, emit, dev, g, stream):
     """The H = 128 kernels at every tile (R, C) and H128_SHAPES."""
-    for kernel in ("b2", "fwd"):
-        for tile in H128_TILE_COST:
+    kernels = ("b2", "fwd", "bwd")
+    for kernel in kernels:
+        for tile in h128_tiles(kernel):
             out = (ctypes.c_int * 6)()
-            _build.check(lib.bilstm_h128_info(*tile, kernel == "fwd", out),
-                         "bilstm_h128_info")
+            _build.check(lib.bilstm_h128_info(*tile, kernels.index(kernel),
+                                              out), "bilstm_h128_info")
             emit(kernel=f"bilstm_h128_{kernel}", tile=list(tile),
                  **dict(zip(INFO_H128, out)))
     for key, (t_, nd, n) in H128_SHAPES.items():
@@ -177,14 +180,27 @@ def sweep_h128(lib, emit, dev, g, stream):
             xp, w = r_(n, t_, nd * 512), r_(nd, 128, 512, k=0.2)
             h0, c0 = (r_(nd, n, 128), r_(nd, n, 128)) if nd == 1 \
                 else (None, None)
-            want = bilstm_train_reference(xp, w, torch.float32, h0, c0)
+            want = bilstm_train_reference(xp, w, torch.float32, h0, c0,
+                                          with_cs=kernel == "bwd")
+            if kernel == "bwd":
+                y, cs = want[0], want[2]
+                dy, dct = r_(n, t_, nd * 128, k=1.0), r_(nd, n, 128, k=1.0)
+                want = bilstm_train_backward_reference(xp, w, h0, c0, y, cs,
+                                                       dy, dct)
             got = tuple(torch.empty_like(e) for e in want)
 
             def run(tile, i):
-                _build.check(lib.bilstm_train_fwd_h128_f32(
-                    p(xp), p(w), p(h0), p(c0), p(got[0]), None, p(got[1]),
-                    t_, nd, n, *tile, stream), "bilstm_train_fwd_h128_f32")
-        for tile in H128_TILE_COST:
+                if kernel == "fwd":
+                    _build.check(lib.bilstm_train_fwd_h128_f32(
+                        p(xp), p(w), p(h0), p(c0), p(got[0]), None,
+                        p(got[1]), t_, nd, n, *tile, stream),
+                        "bilstm_train_fwd_h128_f32")
+                else:
+                    _build.check(lib.bilstm_train_bwd_h128_f32(
+                        p(xp), p(w), p(h0), p(c0), p(y), p(cs), p(dy),
+                        p(dct), *map(p, got), t_, nd, n, *tile, stream),
+                        "bilstm_train_bwd_h128_f32")
+        for tile in h128_tiles(kernel):
             run(tile, 0)
             torch.cuda.synchronize()
             err = max((a - b).abs().max().item() for a, b in zip(got, want))

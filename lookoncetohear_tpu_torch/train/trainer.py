@@ -380,6 +380,7 @@ def main(args, hparams) -> None:
                       table_logger=table_logger)
     num_workers = min(getattr(hparams, "num_workers", 4), os.cpu_count())
     cache = prerender_dir(args, hparams)
+    loaders = []
 
     def make_dl(which, batch_size, shuffle):
         ds = utils.import_attr(getattr(hparams, f"{which}_dataset"))(
@@ -396,9 +397,10 @@ def main(args, hparams) -> None:
             distributed.barrier()
             ds = PrerenderedDataset(out)
         # val/test keep the ragged tail, padded and masked by the eval
-        return DataLoader(ds, max(1, batch_size // trainer.world),
-                          shuffle=shuffle, seed=42, num_workers=num_workers,
-                          drop_last=(which == "train"))
+        loaders.append(DataLoader(
+            ds, max(1, batch_size // trainer.world), shuffle=shuffle,
+            seed=42, num_workers=num_workers, drop_last=(which == "train")))
+        return loaders[-1]
 
     try:
         with utils.full_float32():
@@ -410,5 +412,7 @@ def main(args, hparams) -> None:
                         make_dl("val", hparams.eval_batch_size, False),
                         resume=args.resume, ckpt_path=args.ckpt)
     finally:
+        for dl in loaders:
+            dl.close()
         if num_workers > 0:
             stop_workers()

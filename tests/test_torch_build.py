@@ -1,7 +1,8 @@
 """How the port builds its CUDA kernels, checked without a compiler:
-one nvcc call on every csrc/*.cu into a hashed library under the build
-directory, with the flags the kernels' numerics rely on, nothing built
-on import, and a clear error when nvcc is missing."""
+one nvcc -c on each csrc/*.cu, all started together, and one link into
+a hashed library under the build directory, with the flags the
+kernels' numerics rely on, nothing built on import, and a clear error
+when nvcc is missing."""
 
 import ctypes
 import pathlib
@@ -36,22 +37,30 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 
 def test_one_nvcc_call_for_all_sources(fake_nvcc, tmp_path):
+    """One nvcc call a source, then one link of their objects (the name
+    is kept from the single call for all sources that this replaced)."""
     lib = _build.build()
-    assert len(fake_nvcc) == 1
-    cmd = fake_nvcc[0]
     sources = sorted(str(p) for p in _build.CSRC.glob("*.cu"))
-    assert len(sources) == 3 and cmd[-len(sources):] == sources
-    for flag in ("arch=compute_90a,code=sm_90a", "-shared", "-fPIC", "-O3"):
-        assert flag in cmd
-    assert cmd[cmd.index("-Xptxas") + 1] == "-v"
-    # fast-math would change expf and division: the ring kernel's int8
-    # writes must match the plain version bit for bit
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert len(sources) == 3 and len(fake_nvcc) == len(sources) + 1
+    compiles, link = fake_nvcc[:-1], fake_nvcc[-1]
+    assert sorted(cmd[-1] for cmd in compiles) == sources
+    for cmd in compiles:
+        assert "-c" in cmd and "-shared" not in cmd
+        for flag in ("arch=compute_90a,code=sm_90a", "-fPIC", "-O3"):
+            assert flag in cmd
+        assert cmd[cmd.index("-Xptxas") + 1] == "-v"
+        # fast-math would change expf and division: the ring kernel's
+        # int8 writes must match the plain version bit for bit
+        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    objs = sorted(cmd[cmd.index("-o") + 1] for cmd in compiles)
+    assert "-shared" in link and sorted(link[link.index("-o") + 2:]) == objs
+    assert not any(pathlib.Path(o).exists() for o in objs)
     assert lib.parent == tmp_path / "_build" and lib.is_file()
     assert lib.name.startswith("liblookonce_kernels_") and lib.suffix == ".so"
-    assert _build.last_build["ptxas"] == ["ptxas info    : Used 92 registers"]
+    assert _build.last_build["ptxas"] == [
+        "ptxas info    : Used 92 registers"] * len(fake_nvcc)
     # the same sources and flags are not built twice
-    assert _build.build() == lib and len(fake_nvcc) == 1
+    assert _build.build() == lib and len(fake_nvcc) == len(sources) + 1
     assert _build.last_build["cached"]
 
 

@@ -580,29 +580,79 @@ def test_bilstm_train_fwd_h128_matches_plain(dev, t, nd, n, carried):
                                                              runs[0][1])
 
 
-def test_h128_gradient_is_refused_on_the_card(dev):
-    """No backward kernel at H = 128 yet: a call that needs a gradient
-    raises before any launch, naming the missing backward, and nothing
-    falls back to the plain version; without a gradient it runs."""
+@pytest.mark.parametrize("t,nd,n", [(1, 2, 9), (2, 1, 17), (3, 2, 13),
+                                    (141, 2, 64), (141, 1, 37),
+                                    (500, 1, 141), (500, 2, 9)])
+def test_bilstm_train_bwd_h128_matches_plain(dev, t, nd, n):
+    """The backward at H = 128 (clusters of 8 CTAs, a reduce-scatter of
+    dh over the cluster) in the models' layouts, from a nonzero (h0, c0)
+    and with dy and dc_T, against the plain version on the forward's y
+    and cs: dxp, dh0 and dc0 at 2e-5 of each output's peak up to 141
+    steps and 1e-4 at 500 (as at H = 64), through the wrapper and
+    through the C entry at every tile (R, C) of the backward's table;
+    scans of 1 to 3 steps (the double buffer's first phases) and row
+    counts no tile divides."""
+    from lookoncetohear_tpu_torch import _build
+    from lookoncetohear_tpu_torch.ops.bilstm_scan import (
+        H128_BWD_TILE_COST, bilstm_scan_bwd_cuda, bilstm_scan_train_cuda,
+        bilstm_train_backward_reference, bilstm_train_bwd_h128_cuda)
+    g = torch.Generator().manual_seed(t + nd + n)
+    r = lambda *s, k=0.5: (torch.randn(*s, generator=g) * k).to(dev)
+    xp, w = r(n, t, nd * 512), r(nd, 128, 512, k=0.2)
+    h0, c0, dys, dct = r(nd, n, 128), r(nd, n, 128), \
+        r(n, t, nd * 128, k=1.0), r(nd, n, 128, k=1.0)
+    y, _, cs = bilstm_scan_train_cuda(xp, w, h0, c0)
+    want = bilstm_train_backward_reference(xp, w, h0, c0, y, cs, dys, dct)
+    tol = 2e-5 if t <= 141 else 1e-4
+    before = bilstm_train_bwd_h128_cuda.launches
+    runs = [bilstm_scan_bwd_cuda(xp, w, h0, c0, y, cs, dys, dct)]
+    assert bilstm_train_bwd_h128_cuda.launches == before + 1
+    lib = _build.load_library()
+    p = lambda v: None if v is None else v.data_ptr()
+    for tile in H128_BWD_TILE_COST:
+        out = tuple(torch.empty_like(e) for e in want)
+        _build.check(lib.bilstm_train_bwd_h128_f32(
+            p(xp), p(w), p(h0), p(c0), p(y), p(cs), p(dys), p(dct),
+            p(out[0]), p(out[1]), p(out[2]), t, nd, n, *tile,
+            torch.cuda.current_stream().cuda_stream),
+            "bilstm_train_bwd_h128_f32")
+        runs.append(out)
+    torch.cuda.synchronize()
+    for got in runs:
+        for a, e in zip(got, want):
+            torch.testing.assert_close(
+                a, e, rtol=0, atol=tol * max(1.0, e.abs().max().item()))
+
+
+def test_h128_gradient_runs_the_backward_kernel(dev, monkeypatch):
+    """A gradient at H = 128 through the BiLSTM and the one-direction
+    LSTM launches the training forward and the backward kernel once per
+    LSTM call, never B2 or the H = 64 kernels, and no plain version runs
+    (they are made to raise); every parameter gets its gradient."""
     from lookoncetohear_tpu_torch.ops import bilstm_scan as bs
     from lookoncetohear_tpu_torch.ops.lstm import LSTM
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    for name in ("bilstm_train_reference", "bilstm_train_backward_reference",
+                 "bilstm_scan_reference", "bilstm_scan_backward_reference"):
+        monkeypatch.setattr(bs, name, plain)
     torch.manual_seed(0)
     bi = LSTM(16, 128, bidirectional=True).to(dev)
     uni = LSTM(16, 128).to(dev)
     x = torch.randn(3, 9, 16, device=dev)
     counts = lambda: (bs.bilstm_scan_h128_cuda.launches,
                       bs.bilstm_train_fwd_h128_cuda.launches,
+                      bs.bilstm_train_bwd_h128_cuda.launches,
+                      bs.bilstm_scan_cuda.launches,
                       bs.bilstm_scan_train_cuda.launches,
                       bs.bilstm_scan_bwd_cuda.launches)
     c0 = counts()
-    for m in (bi, uni):
-        with pytest.raises(NotImplementedError,
-                           match="backward kernel at H=128"):
-            m(x)
-    assert counts() == c0
-    with torch.no_grad():
-        bi(x), uni(x)
-    assert [a - b for a, b in zip(counts(), c0)] == [1, 1, 0, 0]
+    (bi(x)[0].sum() + uni(x)[0].sum()).backward()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), c0)] == [0, 2, 2, 0, 0, 0]
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in (*bi.parameters(), *uni.parameters()))
 
 
 def test_training_reciprocal_is_the_ieee_quotient(dev):

@@ -310,26 +310,38 @@ def test_other_widths_are_refused(hidden):
 
 
 def test_backward_width_is_64_only():
-    with pytest.raises(ValueError, match="H=64, not 128"):
-        bs.check_width(128, "backward", bs.BACKWARD_WIDTHS)
+    """Both widths have a backward kernel now (the name is kept from when
+    only H=64 had one); any other width is refused."""
+    assert bs.BACKWARD_WIDTHS == (64, 128)
+    for hidden in bs.BACKWARD_WIDTHS:
+        bs.check_width(hidden, "backward", bs.BACKWARD_WIDTHS)
+    with pytest.raises(ValueError, match="H=64 or H=128, not 96"):
+        bs.check_width(96, "backward", bs.BACKWARD_WIDTHS)
 
 
 def test_gradient_at_h128_is_refused_off_the_cpu():
-    """Off the CPU a call at H=128 that needs a gradient is refused at
-    its forward, naming the missing backward kernel; at H=64 the same
-    call goes on to the kernels (which refuse the meta tensor's
-    device), and on the CPU H=128 differentiates through the plain
-    loops."""
-    w = torch.zeros(1, 128, 512, device="meta", requires_grad=True)
-    xp = torch.zeros(2, 5, 512, device="meta")
-    with pytest.raises(NotImplementedError,
-                       match="backward kernel at H=128.*not yet ported"):
-        bs.bilstm_scan_train(xp, w)
-    with torch.no_grad(), pytest.raises(ValueError, match="GPU"):
-        bs.bilstm_scan_train(xp, w)
-    w64 = torch.zeros(1, 64, 256, device="meta", requires_grad=True)
+    """Off the CPU a call at H=128 that needs a gradient goes on to the
+    kernels, as at H=64, which refuse the meta tensor's device (there is
+    no card here): nothing refuses the width any more (the name is kept
+    from when the gradient was refused). Without a gradient it reaches
+    the same check, and on the CPU H=128 differentiates through the
+    plain loops."""
+    for hidden in (128, 64):
+        w = torch.zeros(1, hidden, 4 * hidden, device="meta",
+                        requires_grad=True)
+        xp = torch.zeros(2, 5, 4 * hidden, device="meta")
+        with pytest.raises(ValueError, match="GPU"):
+            bs.bilstm_scan_train(xp, w)
+        with torch.no_grad(), pytest.raises(ValueError, match="GPU"):
+            bs.bilstm_scan_train(xp, w)
+    state = torch.zeros(1, 2, 128, device="meta")
     with pytest.raises(ValueError, match="GPU"):
-        bs.bilstm_scan_train(torch.zeros(2, 5, 256, device="meta"), w64)
+        bs.bilstm_scan_bwd_cuda(torch.zeros(2, 5, 512, device="meta"),
+                                torch.zeros(1, 128, 512, device="meta"),
+                                state, state,
+                                torch.zeros(2, 5, 128, device="meta"),
+                                torch.zeros(2, 5, 128, device="meta"),
+                                None, None)
     wc = torch.zeros(1, 128, 512, requires_grad=True)
     y, _ = bs.bilstm_scan_train(torch.ones(2, 5, 512), wc)
     y.sum().backward()

@@ -228,6 +228,33 @@ def test_batches_run_the_dataset_in_order():
                                          range(lo, min(lo + 4, 6))]))
 
 
+def test_loader_keeps_its_workers_across_epochs():
+    """One `DataLoader` with workers over two epochs: each epoch's batches
+    follow that epoch's shuffle (`shard_indices`), the first cut to
+    `epoch_batches`' count, and the second epoch runs on the first's
+    worker processes, starting none; `close` stops them."""
+    ds = torch.utils.data.TensorDataset(torch.arange(12))
+    dl = tloader.DataLoader(ds, 4, shuffle=True, seed=7, num_workers=2)
+    got, workers = [], []
+    for epoch, cut in ((0, 2), (1, None)):
+        dl.set_epoch(epoch)
+        got.append([b[0].tolist() for b in dl.epoch_batches(cut)])
+        workers.append([(w.pid, w.is_alive())
+                        for w in dl._loader._iterator._workers])
+    for epoch, cut in ((0, 2), (1, None)):
+        idx = tloader.shard_indices(12, shuffle=True, seed=7, epoch=epoch,
+                                    process_index=0, process_count=1)
+        assert got[epoch] == [idx[i:i + 4].tolist()
+                              for i in range(0, 12, 4)][:cut]
+    assert got[0][0] != got[1][0]
+    assert len(workers[0]) == 2 and workers[1] == workers[0]
+    assert all(alive for _, alive in workers[1])
+    procs = list(dl._loader._iterator._workers)
+    dl.close()
+    assert not any(w.is_alive() for w in procs)
+    tloader.stop_workers()
+
+
 def test_stop_workers_leaves_no_helper_process():
     """After a loader with workers, `stop_workers` ends and reaps the
     fork server and the resource tracker; a second call does nothing."""

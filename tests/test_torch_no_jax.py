@@ -40,7 +40,7 @@ def test_no_jax_import(path):
 
 
 def test_no_extension_builds():
-    """Kernels come from csrc/*.cu through one nvcc call, never from
+    """Kernels come from csrc/*.cu through nvcc, never from
     PyTorch's C++ extension builder or its headers."""
     pkg = ROOT / "lookoncetohear_tpu_torch"
     for p in list(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
