@@ -1174,8 +1174,9 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
         tail [141, 2, 13, 512] (TOL_LSTM); the training forward at the
         full forward's and the eval's inter-time scans (N=141 and 564,
         T=500, D=1) from (h0, c0) and both directions (N=64, T=141, D=2)
-        from zero, each saving every c and not (the same y and c_T bit
-        for bit), at TOL_LSTM_LONG of the peak (over 97 steps); each
+        from zero, each saving every c and every step's gates and
+        neither (the same y and c_T bit for bit), at TOL_LSTM_LONG of
+        the peak (over 97 steps); each
         through its wrapper and through its C entry at every tile (R, C)
         the wrapper can pick;
       * 4 streams in float32, the GPU engine against the CPU engine,
@@ -1258,18 +1259,18 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
         xp, w_hh = rnd(n, t_, nd * 512), rnd(nd, 128, 512, k=0.2)
         h0, c0 = (rnd(nd, n, 128), rnd(nd, n, 128)) if carried \
             else (None, None)
-        got = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
+        got = bilstm_scan_train_cuda(xp, w_hh, h0, c0, save_gates=True)
         lean = bilstm_scan_train_cuda(xp, w_hh, h0, c0, save_cs=False)
         runs = [got]
         for tile in H128_TILE_COST:
             out = tuple(torch.empty_like(v) for v in got)
             _build.check(lib.bilstm_train_fwd_h128_f32(
                 ptr(xp), ptr(w_hh), ptr(h0), ptr(c0), ptr(out[0]),
-                ptr(out[2]), ptr(out[1]), t_, nd, n, *tile, stream),
-                "bilstm_train_fwd_h128_f32")
+                ptr(out[2]), ptr(out[3]), ptr(out[1]), t_, nd, n, *tile,
+                stream), "bilstm_train_fwd_h128_f32")
             runs.append(out)
         want = bilstm_train_reference(xp, w_hh, torch.float32, h0, c0,
-                                      with_cs=True)
+                                      with_cs=True, with_gates=True)
         torch.cuda.synchronize()
         err = max((a - e).abs().max().item() / max(1.0, e.abs().max().item())
                   for run in runs for a, e in zip(run, want))
@@ -1277,8 +1278,8 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
             f"{', from h0/c0' if carried else ''}), tile "
             f"{tile_h128(n, nd, dev, 'fwd')} and through the C entry at "
             f"every tile: max|kernel - plain| / max(1, peak) over y, c_T, "
-            f"cs = {err:.3e} (tolerance {TOL_LSTM_LONG}); without cs y and "
-            f"c_T bit for bit")
+            f"cs and the gates = {err:.3e} (tolerance {TOL_LSTM_LONG}); "
+            f"without cs and the gates y and c_T bit for bit")
         if not (err <= TOL_LSTM_LONG and lean[2] is None
                 and torch.equal(lean[0], got[0])
                 and torch.equal(lean[1], got[1])):
@@ -1585,16 +1586,24 @@ def default_net_training_phase(torch, smi, res, launch_counts,
     `csrc/bilstm_scan.cu`:
       * what ptxas reported for the backward, and each of its tiles (R
         rows over clusters of 8 CTAs);
-      * the backward against its plain version at the training step's
-        scans at 8 x 5 s, (141, 2, 4000) and (500, 1, 1128) from (h0,
-        c0), a row count no tile divides and scans of 1-3 steps, through
-        its wrapper and its C entry at every tile: dxp, dh0, dc0 within
-        TOL_LSTM of max(1, peak) up to 141 steps, TOL_LSTM_LONG at 500;
+      * the training forward's saved gates and cell states against the
+        plain forward, and the backward (which reads those gates) against
+        its plain version, at the training step's scans at 8 x 5 s, (141,
+        2, 4000) and (500, 1, 1128) from (h0, c0), a row count no tile
+        divides and scans of 1-3 steps, through its wrapper and its C
+        entry at every tile: gates, cs, dxp, dh0, dc0 within TOL_LSTM of
+        max(1, peak) up to 141 steps, TOL_LSTM_LONG at 500;
       * times by CUDA events at the two training scans: the backward and
-        the training forward beside the plain backward and cuDNN's
-        `nn.LSTM(64, 128)` forward and forward + backward (bidirectional
-        at the intra scan), and B2 at the eval's [141, 2, 2000] beside
-        cuDNN's forward; bounds as in `default_net_phase`;
+        the training forward (with the gates, as a step runs it, and
+        without) beside the plain backward and cuDNN's `nn.LSTM(64,
+        128)` forward and forward + backward (bidirectional at the intra
+        scan), and B2 at the eval's [141, 2, 2000] beside cuDNN's
+        forward; bounds as in `default_net_phase`, for the work each
+        kernel now does (the backward reads gates, cs, dy and the states
+        and writes dxp, one product; the forward also writes the gates),
+        and the forward + backward pair's bound beside that of the
+        design that recomputed the gates (the forward writing no gates,
+        the backward reading xp and y, two products);
       * one step (loss and backward) on the card against the CPU over
         DEFAULT_TRAIN_CHECK (2 x 0.5 s of the synthetic train split), TF32
         off: the loss within TOL_TRAIN_LOSS of the CPU's float32 run,
@@ -1611,8 +1620,9 @@ def default_net_training_phase(torch, smi, res, launch_counts,
     from lookoncetohear_tpu_torch import utils as port_utils
     from lookoncetohear_tpu_torch.data.loader import collate
     from lookoncetohear_tpu_torch.ops.bilstm_scan import (
-        H128_BWD_TILE_COST, bilstm_scan_bwd_cuda, bilstm_scan_cuda,
-        bilstm_scan_train_cuda, bilstm_train_backward_reference, tile_h128)
+        H128_BWD_TILE_COST, bilstm_scan_cuda, bilstm_scan_train_cuda,
+        bilstm_train_bwd_h128_cuda, bilstm_train_gates_backward_reference,
+        bilstm_train_reference, tile_h128)
     from lookoncetohear_tpu_torch.timing import device_ms, wall_ms
     from lookoncetohear_tpu_torch.train.trainer import (Trainer, build_task,
                                                         to_device)
@@ -1645,10 +1655,20 @@ def default_net_training_phase(torch, smi, res, launch_counts,
         h0, c0 = (rnd(nd, n, 128), rnd(nd, n, 128)) if carried \
             else (None, None)
         dy, dct = rnd(n, t_, nd * 128, k=1.0), rnd(nd, n, 128, k=1.0)
-        y, _, cs = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
-        args = (xp, w_hh, h0, c0, y, cs, dy, dct)
-        want = bilstm_train_backward_reference(*args)
-        runs = [bilstm_scan_bwd_cuda(*args)]
+        y, _, cs, gates = bilstm_scan_train_cuda(xp, w_hh, h0, c0,
+                                                 save_gates=True)
+        tol = TOL_LSTM if t_ <= 141 else TOL_LSTM_LONG
+
+        def of_peak(got, want):
+            return max((a - e).abs().max().item()
+                       / max(1.0, e.abs().max().item())
+                       for a, e in zip(got, want))
+        fwd_err = of_peak((cs, gates), bilstm_train_reference(
+            xp, w_hh, torch.float32, h0, c0, with_cs=True,
+            with_gates=True)[2:])
+        args = (gates, w_hh, c0, cs, dy, dct)
+        want = bilstm_train_gates_backward_reference(*args)
+        runs = [bilstm_train_bwd_h128_cuda(*args)]
         for tile in H128_BWD_TILE_COST:
             out = tuple(torch.empty_like(e) for e in want)
             _build.check(lib.bilstm_train_bwd_h128_f32(
@@ -1656,33 +1676,38 @@ def default_net_training_phase(torch, smi, res, launch_counts,
                 "bilstm_train_bwd_h128_f32")
             runs.append(out)
         torch.cuda.synchronize()
-        tol = TOL_LSTM if t_ <= 141 else TOL_LSTM_LONG
-        err = max((a - e).abs().max().item() / max(1.0, e.abs().max().item())
-                  for run in runs for a, e in zip(run, want))
+        err = max(of_peak(run, want) for run in runs)
         log(f"  backward at H=128 {key} (T={t_}, D={nd}, N={n}"
             f"{', from h0/c0' if carried else ''}), tile "
             f"{tile_h128(n, nd, dev, 'bwd')} and through the C entry at "
             f"every tile: max|kernel - plain| / max(1, peak) over dxp, dh0, "
-            f"dc0 = {err:.3e} (tolerance {tol})")
-        if not (err <= tol and all(torch.isfinite(a).all()
-                                   for run in runs for a in run)):
-            raise AssertionError(f"backward at H=128 {key} differs: {err}")
+            f"dc0 = {err:.3e}; the forward's saved cs and gates against the "
+            f"plain forward {fwd_err:.3e} (tolerance {tol})")
+        if not (err <= tol and fwd_err <= tol and all(
+                torch.isfinite(a).all() for run in runs for a in run)):
+            raise AssertionError(f"backward at H=128 {key} differs: {err}, "
+                                 f"the forward's gates {fwd_err}")
         worst = max(worst, err)
         if key.startswith("train"):
-            scans[key] = args
+            scans[key] = (xp, h0, args)
     res["bilstm_scan_bwd_train_h128"] = dict(max_abs_err=worst)
 
     # times: the kernels beside the plain backward and cuDNN
-    for key, args in scans.items():
-        xp, w_hh, h0, c0, y, cs, dy, dct = args
+    for key, (xp, h0, args) in scans.items():
+        gates, w_hh, c0, cs, dy, dct = args
         n, t_, dg = xp.shape
         nd = dg // 512
-        bwd = lambda i: bilstm_scan_bwd_cuda(*args)  # noqa: E731
-        fwd = lambda i: bilstm_scan_train_cuda(xp, w_hh, h0, c0)  # noqa
+        bwd = lambda i: bilstm_train_bwd_h128_cuda(*args)  # noqa: E731
+        fwd = lambda i: bilstm_scan_train_cuda(  # noqa: E731
+            xp, w_hh, h0, c0, save_gates=True)
+        fwd_lean = lambda i: bilstm_scan_train_cuda(  # noqa: E731
+            xp, w_hh, h0, c0)
         for _ in range(2):
-            bwd(0), fwd(0)
+            bwd(0), fwd(0), fwd_lean(0)
         b_ms, f_ms = device_ms(bwd, 5), device_ms(fwd, 5)
-        p_ms = wall_ms(lambda i: bilstm_train_backward_reference(*args), 2)
+        fl_ms = device_ms(fwd_lean, 5)
+        p_ms = wall_ms(lambda i: bilstm_train_gates_backward_reference(
+            *args), 2)
         lstm = torch.nn.LSTM(64, 128, batch_first=True,
                              bidirectional=nd == 2).to(dev)
         x_in = rnd(n, t_, 64).requires_grad_()
@@ -1696,21 +1721,41 @@ def default_net_training_phase(torch, smi, res, launch_counts,
         del lstm, x_in, gy
         n_state = nd * n * 128
         seq = t_ * n_state
-        states = 0 if h0 is None else 2 * n_state
-        # each input read once, each output written once; two products a
-        # row, direction and step (+ the cell's elementwise work)
-        nbytes = 4 * (2 * xp.numel() + w_hh.numel() + 3 * seq + states
-                      + 3 * n_state)
-        mm_flops = t_ * nd * n * 2 * 2 * 128 * 512
-        ew_flops = t_ * n_state * 16
-        t_bytes = nbytes / PEAK_BYTES_S
-        t_ops = 3 * mm_flops / PEAK_TF32_FLOPS
+        states = 0 if h0 is None else n_state        # h0 or c0
+        product = t_ * nd * n * 2 * 128 * 512      # one, a row and step
+
+        def bound(floats, products, ew=0):
+            """(ms, what bounds it, float32 FMA ms) of moving `floats`
+            floats and doing `products` recurrent products as three TF32
+            products (and `ew` elementwise operations)."""
+            t_bytes = 4 * floats / PEAK_BYTES_S
+            t_ops = 3 * products * product / PEAK_TF32_FLOPS
+            return (max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations",
+                    max(t_bytes, (products * product + ew)
+                        / PEAK_F32_FLOPS) * 1e3)
+        # each input read once, each output written once. The backward
+        # reads the gates, cs, dy, W_hh, c0 and dc_T and writes dxp, dh0
+        # and dc0: one product a row, direction and step (+ the cell's
+        # elementwise work). The forward reads xp, W_hh, h0 and c0 and
+        # writes y, cs, the gates and c_T. The design that recomputed the
+        # gates: the forward wrote no gates, the backward read xp, y and h0
+        # besides, two products.
+        w_f = w_hh.numel()
+        b_bytes = 4 * seq + seq + seq + w_f + states + n_state \
+            + 4 * seq + 2 * n_state
+        f_bytes = 4 * seq + w_f + 2 * states + seq + seq + 4 * seq + n_state
+        b_ms_, by, b_f32 = bound(b_bytes, 1, t_ * n_state * 16)
+        fb_ms, fby, _ = bound(f_bytes, 1)
+        pair_ms = bound(b_bytes + f_bytes, 2)[0]
+        old_pair_ms = bound((b_bytes + seq + states) + (f_bytes - 4 * seq),
+                            3)[0]
         row = dict(ms=b_ms, plain_ms=p_ms, library_ms=lfb_ms,
-                   bound_ms=max(t_bytes, t_ops) * 1e3,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bound_f32_ms=max(t_bytes, (mm_flops + ew_flops)
-                                    / PEAK_F32_FLOPS) * 1e3,
+                   bound_ms=b_ms_, bound_by=by, bound_f32_ms=b_f32,
                    tile=list(tile_h128(n, nd, dev, "bwd")), fwd_ms=f_ms,
+                   fwd_no_gates_ms=fl_ms, fwd_bound_ms=fb_ms,
+                   fwd_bound_by=fby, pair_bound_ms=pair_ms,
+                   pair_bound_recompute_ms=old_pair_ms,
                    fwd_tile=list(tile_h128(n, nd, dev, "fwd")),
                    fwd_library_ms=lf_ms)
         res[f"bilstm_scan_bwd_train_h128_{key}"] = row
@@ -1718,14 +1763,18 @@ def default_net_training_phase(torch, smi, res, launch_counts,
             res["bilstm_scan_bwd_train_h128"].update(row)
         log(f"  backward at H=128 (T={t_}, D={nd}, N={n}), tile "
             f"{row['tile']}: kernel {b_ms * 1e3:.1f} us, bound "
-            f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, three TF32 "
+            f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}, "
+            f"{4 * b_bytes / 1e9:.2f} GB, one product as three TF32 "
             f"products; float32 FMAs {row['bound_f32_ms'] * 1e3:.1f} us), "
             f"plain {p_ms * 1e3:.1f} us, cuDNN nn.LSTM(64, 128"
             f"{', bidirectional' if nd == 2 else ''}) forward + backward "
-            f"{lfb_ms * 1e3:.1f} us; the training forward (cs saved), tile "
-            f"{row['fwd_tile']}: {f_ms * 1e3:.1f} us, cuDNN forward "
-            f"{lf_ms * 1e3:.1f} us [{smi}]")
-    del scans, args
+            f"{lfb_ms * 1e3:.1f} us; the training forward (cs and gates "
+            f"saved), tile {row['fwd_tile']}: {f_ms * 1e3:.1f} us (without "
+            f"the gates {fl_ms * 1e3:.1f} us), bound {fb_ms * 1e3:.1f} us "
+            f"({fby}, {4 * f_bytes / 1e9:.2f} GB), cuDNN forward "
+            f"{lf_ms * 1e3:.1f} us; the pair's bound {pair_ms * 1e3:.1f} us "
+            f"(recomputing the gates: {old_pair_ms * 1e3:.1f} us) [{smi}]")
+    del scans, args, gates
     with torch.no_grad():
         xp, w_hh = rnd(141, 2, 2000, 512), rnd(2, 128, 512, k=0.2)
         lstm = torch.nn.LSTM(64, 128, batch_first=True,

@@ -46,11 +46,10 @@ _SIGNATURES = {
     "bilstm_train_info": [_I, _I, _P],
     # at H=128: xp, w_hh, ys, c_T, T, B, R, C, stream
     "bilstm_scan_h128_f32": [_P] * 4 + [_I] * 4 + [_P],
-    # xp, w_hh, h0, c0, y, cs, c_T, T, D, N, R, C, stream
-    "bilstm_train_fwd_h128_f32": [_P] * 7 + [_I] * 5 + [_P],
-    # xp, w_hh, h0, c0, y, cs, dy, dc_T, dxp, dh0, dc0, T, D, N, R, C,
-    # stream
-    "bilstm_train_bwd_h128_f32": [_P] * 11 + [_I] * 5 + [_P],
+    # xp, w_hh, h0, c0, y, cs, gates, c_T, T, D, N, R, C, stream
+    "bilstm_train_fwd_h128_f32": [_P] * 8 + [_I] * 5 + [_P],
+    # gates, w_hh, c0, cs, dy, dc_T, dxp, dh0, dc0, T, D, N, R, C, stream
+    "bilstm_train_bwd_h128_f32": [_P] * 9 + [_I] * 5 + [_P],
     # R, C, train, int[6] out
     "bilstm_h128_info": [_I, _I, _I, _P],
     # d, out, n, stream

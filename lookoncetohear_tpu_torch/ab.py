@@ -50,11 +50,24 @@ within one call, on one card:
     D=1, N=141) from a carried state without cs; each version through
     its C entries with the signature its source declares and the tile
     its own wrapper picks (`scan_phases.h128_tile`), each output's
-    largest difference from the plain version; then the default `Net`
-    (seeded weights) in a process of its own per version and turn (this,
-    baseline, baseline, this): its 64-stream CUDA-graph step at float32
-    (ms from call to synchronize, median of NET_STEPS) and its full
-    forward on 5 s (CUDA events, median of 5). `--h128` runs only these.
+    largest difference from the plain version; then at the default
+    `Net`'s two training scans at 8 x 5 s, (141, 2, 4000) and (500, 1,
+    1128) from a carried state: the training forward as each version's
+    training step runs it (this one with cs and the gates, and also
+    without the gates; the baseline with what its source writes) and the
+    backward, each version through its own C signature (one that
+    recomputes the gates takes xp and y, one that reads them the
+    gates), all from the outputs of one forward, with each output's
+    largest difference from the plain version over max(1, peak); then
+    the default `Net` (seeded weights) in processes of their own per
+    version and turn (this, baseline, baseline, this): its 64-stream
+    CUDA-graph step at float32 (ms from call to synchronize, median of
+    NET_STEPS) and its full forward on 5 s (CUDA events, median of 5);
+    and `Trainer.train_step` of `TSETask` with the default `Net` and the
+    rest of configs/tsh_synthetic_5k.json at 8 x 5 s, keeping every
+    activation and with every block checkpointed (ms a step, median
+    after the first of TRAIN_STEPS, and peak GB allocated in the
+    process). `--h128` runs only these.
 The kernels run in the order this, baseline, baseline, this. Prints one
 JSON object per measurement, each with the card's name and power limit,
 and writes them to --out if given.
@@ -80,7 +93,9 @@ from lookoncetohear_tpu_torch.ops.attn_step import (VARIANTS,
                                                     attention_step_reference)
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (
     bilstm_scan_bwd_cuda, bilstm_scan_cuda, bilstm_scan_reference,
-    bilstm_scan_train_cuda, bilstm_train_reference, scan_layout, tile_rows)
+    bilstm_scan_train_cuda, bilstm_train_bwd_h128_cuda,
+    bilstm_train_gates_backward_reference, bilstm_train_reference,
+    scan_layout, tile_rows)
 from lookoncetohear_tpu_torch.timing import attn_entry, attn_inputs, device_ms
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -108,6 +123,14 @@ TRAIN_STEPS = 5  # steps a version's process times; the first is not kept
 H128_SHAPES = {"b2_serving": (141, 2, 64), "b2_full_forward": (141, 2, 500),
                "fwd_full_forward_inter": (500, 1, 141)}
 NET_STEPS = 50   # timed graph steps of the default Net at 64 streams
+# the default Net's training scans at 8 x 5 s, (T, D, N): the inter-time
+# LSTM from a carried state
+H128_TRAIN = {"train_intra": (141, 2, 4000), "train_inter": (500, 1, 1128)}
+# the reference's `Net()` defaults, as chip_smoke.py trains them
+DEFAULT_NET = dict(embed_dim=256, stft_chunk_size=160, stft_pad_size=120,
+                   num_ch=2, D=64, L=0, I=1, J=1, B=6, H=128,
+                   use_attn=False, lookahead=True, local_atten_len=100,
+                   chunk_causal=False)
 
 # One version's default Net (seeded weights, as chip_smoke.py builds it),
 # in a process of its own with its tree first on sys.path: the 64-stream
@@ -166,6 +189,47 @@ with torch.no_grad():
     torch.cuda.synchronize()
     out["full_forward_ms"] = float(np.median([a.elapsed_time(b)
                                               for a, b in ev]))
+print(json.dumps(out))
+"""
+
+# One version's default Net in training, in a process of its own with its
+# tree first on sys.path: `Trainer.train_step` at the config's 8 x 5 s,
+# keeping every activation and then with every block checkpointed. Prints
+# one JSON object.
+_NET_TRAIN_PROBE = r"""
+import json, sys, tempfile, time
+import numpy as np, torch
+tree, cfg, params, steps = sys.argv[1], sys.argv[2], json.loads(
+    sys.argv[3]), int(sys.argv[4])
+sys.path.insert(0, tree)
+from lookoncetohear_tpu_torch import utils
+from lookoncetohear_tpu_torch.data.loader import collate
+from lookoncetohear_tpu_torch.train.trainer import (Trainer, build_task,
+                                                    to_device)
+dev = torch.device("cuda")
+hp = utils.Params(cfg)
+hp.pl_module_args = dict(hp.pl_module_args, model_params=params)
+ds = utils.import_attr(hp.train_dataset)(**hp.train_data_args)
+host = collate([ds[i] for i in range(hp.batch_size)])
+task = build_task(hp, seed=16)
+out = {}
+with tempfile.TemporaryDirectory() as tmp, utils.full_float32():
+    tr = Trainer(task, tmp, epochs=1, device=dev)
+    batch = to_device(task.device_batch(host, train=True), dev)
+    for remat in (False, True):
+        task.model.tfgridnet.remat = remat
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(batch, 0)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["remat" if remat else "plain"] = dict(
+            step_ms=float(np.median(ms[1:])), first_ms=ms[0],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 print(json.dumps(out))
 """
 
@@ -649,10 +713,11 @@ def h128_section(base, base_tree, emit, g, stream) -> int:
     """The H = 128 kernels of both versions at H128_SHAPES, then each
     version's default Net in processes of their own; non-zero if a
     process failed."""
-    design = scan_phases.design_of(
-        (base_tree / "lookoncetohear_tpu_torch" / "csrc" /
-         "bilstm_scan.cu").read_text())
-    scan_phases.bind_h128(base, design)
+    source = (base_tree / "lookoncetohear_tpu_torch" / "csrc" /
+              "bilstm_scan.cu").read_text()
+    design = scan_phases.design_of(source)
+    sig = scan_phases.signatures(source)
+    scan_phases.bind_h128(base, design, sig)
     cost = scan_phases.cost_table(base_tree)
     dev = g.device
     p = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
@@ -674,7 +739,8 @@ def h128_section(base, base_tree, emit, g, stream) -> int:
 
             def baseline(i):
                 _build.check(base.bilstm_train_fwd_h128_f32(
-                    p(xp), p(w), p(h0), p(c0), p(got[0]), None, p(got[1]),
+                    *scan_phases.fwd_args(sig, xp, w, h0, c0, got[0], None,
+                                          None, got[1]),
                     t_, nd, n, *tile, stream), "baseline training forward")
                 return got
         else:
@@ -711,6 +777,7 @@ def h128_section(base, base_tree, emit, g, stream) -> int:
              baseline_us=base_us, speedup=base_us / this_us)
         del xp, w, want, got, fns
         torch.cuda.empty_cache()
+    train_section(base, sig, design, cost, base_tree, emit, g, stream)
     runs: dict = {}
     for turn, name in enumerate(ORDER):
         proc = subprocess.run(
@@ -725,10 +792,107 @@ def h128_section(base, base_tree, emit, g, stream) -> int:
              turn=turn, **got)
         for k, v in got.items():
             runs.setdefault((k, name), []).append(v)
+    for turn, name in enumerate(ORDER):
+        proc = subprocess.run(
+            [sys.executable, "-c", _NET_TRAIN_PROBE,
+             str(ROOT if name == "this" else base_tree),
+             str(TRAIN_CONFIGS["TSETask"]), json.dumps(DEFAULT_NET),
+             str(TRAIN_STEPS)], capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            print(proc.stderr, file=sys.stderr)
+            return 1
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        for label, row in got.items():
+            emit(what="default Net train_step, 8 x 5 s", remat=label,
+                 version=name, turn=turn, **row)
+            for k, v in row.items():
+                runs.setdefault((f"train_step {label} {k}", name),
+                                []).append(v)
     for (k, name), v in runs.items():
         emit(what=f"default Net {k}, summary", version=name,
              mean=float(np.mean(v)), runs=v)
     return 0
+
+
+def train_section(base, sig, design, cost, base_tree, emit, g,
+                  stream) -> None:
+    """At the default Net's training scans H128_TRAIN: the training
+    forward and the backward of both versions, in turns, from one
+    forward's outputs; nothing when the baseline has no H = 128
+    backward."""
+    if not sig["bwd"]:
+        return
+    bcost = scan_phases.cost_table(base_tree, "H128_BWD_TILE_COST")
+    dev = g.device
+    for key, (t_, nd, n) in H128_TRAIN.items():
+        def r_(*shape, k=0.5):
+            return torch.randn(shape, generator=g, device=dev) * k
+        xp, w = r_(n, t_, nd * 512), r_(nd, 128, 512, k=0.2)
+        h0, c0 = (r_(nd, n, 128), r_(nd, n, 128)) if nd == 1 \
+            else (None, None)
+        dy, dct = r_(n, t_, nd * 128, k=1.0), r_(nd, n, 128, k=1.0)
+        y, c_t, cs, gates = bilstm_scan_train_cuda(xp, w, h0, c0,
+                                                   save_gates=True)
+        b_fwd = [torch.empty_like(v) for v in (y, c_t, cs, gates)]
+        b_bwd = [torch.empty_like(xp), torch.empty_like(c_t),
+                 torch.empty_like(c_t)]
+        ftile = scan_phases.h128_tile(design, base, cost, n, nd, 1)
+        btile = scan_phases.h128_tile(design, base, bcost, n, nd, 2)
+
+        def base_fwd(i):
+            # what the baseline's training step has its forward write
+            _build.check(base.bilstm_train_fwd_h128_f32(
+                *scan_phases.fwd_args(sig, xp, w, h0, c0, b_fwd[0], b_fwd[2],
+                                      b_fwd[3], b_fwd[1]),
+                t_, nd, n, *ftile, stream), "baseline training forward")
+            return b_fwd[:3] + (b_fwd[3:] if sig["fwd"] == 8 else [])
+
+        def base_bwd(i):
+            _build.check(base.bilstm_train_bwd_h128_f32(
+                *scan_phases.bwd_args(sig, xp, w, h0, c0, y, cs, gates, dy,
+                                      dct, *b_bwd),
+                t_, nd, n, *btile, stream), "baseline backward")
+            return b_bwd
+        fns = {
+            "fwd": {"this": lambda i: bilstm_scan_train_cuda(
+                        xp, w, h0, c0, save_gates=True),
+                    "this, no gates": lambda i: bilstm_scan_train_cuda(
+                        xp, w, h0, c0),
+                    "baseline": base_fwd},
+            "bwd": {"this": lambda i: bilstm_train_bwd_h128_cuda(
+                        gates, w, c0, cs, dy, dct),
+                    "baseline": base_bwd}}
+        wants = {"fwd": bilstm_train_reference(xp, w, torch.float32, h0, c0,
+                                               with_cs=True, with_gates=True),
+                 "bwd": bilstm_train_gates_backward_reference(
+                     gates, w, c0, cs, dy, dct)}
+        for kname, group in fns.items():
+            for name, fn in group.items():
+                out = fn(0)
+                torch.cuda.synchronize()
+                emit(kernel=f"h128 {kname}", shape=key, version=name,
+                     max_err_of_peak=max(
+                         (a - e).abs().max().item()
+                         / max(1.0, e.abs().max().item())
+                         for a, e in zip(out, wants[kname])))
+            order = ORDER if kname == "bwd" else (
+                "this", "this, no gates", "baseline", "baseline",
+                "this, no gates", "this")
+            us = {}
+            for name in order:
+                for i in range(2):
+                    group[name](i)
+                v = device_ms(group[name], 5) * 1e3
+                us.setdefault(name, []).append(v)
+                emit(kernel=f"h128 {kname}", shape=key, version=name, us=v,
+                     tile=list(btile if kname == "bwd" else ftile)
+                     if name == "baseline" else None)
+            emit(kernel=f"h128 {kname}", shape=key, what="summary",
+                 **{f"{name} us": float(np.mean(v))
+                    for name, v in us.items()})
+        del xp, w, h0, c0, dy, dct, y, c_t, cs, gates, b_fwd, b_bwd, fns
+        del wants
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

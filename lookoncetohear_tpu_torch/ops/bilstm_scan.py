@@ -12,8 +12,9 @@ plain PyTorch versions.
   [D, N, H], in the models' own layouts: xp [N, T, D*4H] as one GEMM
   makes it, y [N, T, D*H] as the LSTM returns it, direction 1 running
   backwards in time inside the kernels. A `torch.autograd.Function`
-  (`BiLSTMScan`) whose forward saves every cell state and whose
-  backward is a kernel of its own. They stand for the differentiated
+  (`BiLSTMScan`) whose forward saves every cell state (at H = 128 also
+  every step's activated gates, in place of xp) and whose backward is a
+  kernel of its own. They stand for the differentiated
   `lax.scan` of `lookoncetohear_tpu/ops/lstm.py` (`_lstm_scan`,
   `_chunked_scan`): the TPU kernel has no gradient.
 
@@ -21,8 +22,9 @@ The kernels (`csrc/bilstm_scan.cu`) take H = 64 (a block a row tile)
 and H = 128 (B2 and the training forward: a cluster of C = 4 or 8 CTAs
 a tile of R = 8 or 16 rows, W_hh's gate columns split over the cluster,
 the product on the tensor cores in TF32 with three products; the
-backward on clusters of 8 CTAs, its dh carried by a reduce-scatter over
-the cluster). Every other width is refused.
+backward on clusters of 8 CTAs, from the gates the forward saved, its dh
+carried by a reduce-scatter over the cluster). Every other width is
+refused.
 
 Everything runs in float32 on the card. A wrapper launches its kernel
 for CUDA tensors and uses the plain version only for CPU tensors.
@@ -41,6 +43,10 @@ from lookoncetohear_tpu_torch import _build
 # forward), and the backward's
 KERNEL_WIDTHS = (64, 128)
 BACKWARD_WIDTHS = (64, 128)
+# the widths at which `BiLSTMScan` saves the forward's activated gates
+# and not xp (the same bytes), so that the backward reads them instead
+# of recomputing them (the H = 64 backward recomputes them from xp and y)
+GATES_SAVED_AT = (128,)
 # rows a block of each training kernel may take, and the relative time
 # of one wave of its blocks (every SM running as many as fit) a step:
 # fitted to `python3 -m lookoncetohear_tpu_torch.scan_sweep` on an H100
@@ -54,8 +60,9 @@ TRAIN_TILE_COST = {"fwd": {4: 2.1, 8: 3.75, 16: 6.4},
 # `scan_sweep` on an H100 at the default Net's B2, full-forward, eval and
 # training scans, where these costs pick the fastest tile
 H128_TILE_COST = {(8, 8): 1.0, (16, 8): 1.6, (8, 4): 1.04, (16, 4): 1.8}
-# the same for the H = 128 backward, whose clusters are of 8 CTAs: fitted
-# to `scan_sweep --h128` on an H100 at the default Net's training scans
+# the same for the H = 128 backward, whose clusters are of 8 CTAs (two an
+# SM): fitted to `scan_sweep --h128` on an H100 at the default Net's
+# training scans
 H128_BWD_TILE_COST = {(8, 8): 1.0, (16, 8): 1.43}
 
 
@@ -67,39 +74,62 @@ def h128_tiles(kernel: str) -> dict:
 
 def bilstm_scan_reference(xp: torch.Tensor, w_hh: torch.Tensor,
                           dtype=torch.float32, h0=None, c0=None,
-                          with_cs: bool = False):
+                          with_cs: bool = False, with_gates: bool = False):
     """Plain PyTorch version of the forward: a loop over T, the D
     directions of xp [T, D, B, 4H] and w_hh [D, H, 4H] at once, from
     (h0, c0) [D, B, H] (None: zero), in `dtype` (float32 as the
     kernels; float64 to measure how far each float32 version drifts
     from the exact recurrence). Returns (ys [T, D, B, H], c_T
-    [D, B, H]), and with `with_cs` also cs [T, D, B, H], every step's
-    cell state (what the training forward saves)."""
+    [D, B, H]), with `with_cs` then cs [T, D, B, H], every step's cell
+    state (what the training forward saves), and with `with_gates` then
+    the activated gates [T, D, B, 4H] (sigmoid(i), sigmoid(f), tanh(g),
+    sigmoid(o) in xp's order: what the training forward at H = 128 also
+    saves)."""
     xp = xp.to(dtype)
     w_hh = w_hh.to(dtype)
     t_len, nd, b, g4 = xp.shape
     hidden = g4 // 4
     h = xp.new_zeros((nd, b, hidden)) if h0 is None else h0.to(dtype)
     c = xp.new_zeros((nd, b, hidden)) if c0 is None else c0.to(dtype)
-    ys, cs = [], []
+    ys, cs, acts = [], [], []
     for t in range(t_len):
         gates = xp[t] + torch.bmm(h, w_hh)          # [D, B, 4H]
         i, f, g, o = gates.split(hidden, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
         ys.append(h)
         cs.append(c)
+        if with_gates:
+            acts.append(torch.cat([i, f, g, o], dim=-1))
+    out = (torch.stack(ys), c)
     if with_cs:
-        return torch.stack(ys), c, torch.stack(cs)
-    return torch.stack(ys), c
+        out += (torch.stack(cs),)
+    if with_gates:
+        out += (torch.stack(acts),)
+    return out
+
+
+def _cell_backward(i, f, g, o, c_prev, c, dh, dc_next):
+    """One step of the backward from the activated gates: (dgates
+    [.., 4H], dc_prev) for dh = dL/dh_t and dc_next the carried dL/dc_t,
+    c_prev and c the cell states c_{t-1} and c_t."""
+    tc = torch.tanh(c)
+    dc = dc_next + dh * o * (1.0 - tc * tc)
+    dgates = torch.cat([dc * g * i * (1.0 - i),
+                        dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g),
+                        dh * tc * o * (1.0 - o)], dim=-1)
+    return dgates, dc * f
 
 
 def bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs, dys, dc_t,
                                    matmul=torch.bmm):
-    """Plain PyTorch version of the backward kernel: an explicit reverse
-    loop that recomputes each step's gates from h_{t-1} (ys[t-1] or h0)
-    and returns (dxp [T, D, B, 4H], dh0, dc0 [D, B, H]). h0, c0, dys
-    and dc_t may be None (zero). dW_hh is not part of it (see
+    """Plain PyTorch version of the backward kernel at H = 64: an explicit
+    reverse loop that recomputes each step's gates from h_{t-1} (ys[t-1]
+    or h0) and returns (dxp [T, D, B, 4H], dh0, dc0 [D, B, H]). h0, c0,
+    dys and dc_t may be None (zero). dW_hh is not part of it (see
     `scan_weight_grad`). `matmul` forms both products (h_prev W and
     dgates W^T)."""
     t_len, nd, b, g4 = xp.shape
@@ -115,17 +145,34 @@ def bilstm_scan_backward_reference(xp, w_hh, h0, c0, ys, cs, dys, dc_t,
         gates = xp[t] + matmul(h_prev, w_hh)
         i, f, g, o = gates.split(hidden, dim=-1)
         i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
-        g = torch.tanh(g)
-        tc = torch.tanh(cs[t])
         dh = dh_next if dys is None else dys[t] + dh_next
-        dc = dc_next + dh * o * (1.0 - tc * tc)
-        dgates = torch.cat([dc * g * i * (1.0 - i),
-                            dc * c_prev * f * (1.0 - f),
-                            dc * i * (1.0 - g * g),
-                            dh * tc * o * (1.0 - o)], dim=-1)
-        dxp[t] = dgates
-        dh_next = matmul(dgates, w_t)
-        dc_next = dc * f
+        dxp[t], dc_next = _cell_backward(i, f, torch.tanh(g), o, c_prev,
+                                         cs[t], dh, dc_next)
+        dh_next = matmul(dxp[t], w_t)
+    return dxp, dh_next, dc_next
+
+
+def bilstm_scan_gates_backward_reference(gates, w_hh, c0, cs, dys, dc_t,
+                                         matmul=torch.bmm):
+    """Plain PyTorch version of the backward kernel at H = 128: the reverse
+    loop of `bilstm_scan_backward_reference` from the forward's activated
+    gates [T, D, B, 4H] (`bilstm_scan_reference(..., with_gates=True)`)
+    instead of recomputing them, so it needs neither xp nor ys nor h0:
+    one product a step (dgates W^T, by `matmul`). Returns (dxp, dh0,
+    dc0); c0, dys and dc_t may be None (zero)."""
+    t_len, nd, b, g4 = gates.shape
+    hidden = g4 // 4
+    zero = gates.new_zeros((nd, b, hidden))
+    w_t = w_hh.transpose(1, 2)                      # [D, 4H, H]
+    dh_next = zero
+    dc_next = zero if dc_t is None else dc_t
+    dxp = torch.empty_like(gates)
+    for t in range(t_len - 1, -1, -1):
+        c_prev = cs[t - 1] if t > 0 else (zero if c0 is None else c0)
+        dh = dh_next if dys is None else dys[t] + dh_next
+        dxp[t], dc_next = _cell_backward(*gates[t].split(hidden, dim=-1),
+                                         c_prev, cs[t], dh, dc_next)
+        dh_next = matmul(dxp[t], w_t)
     return dxp, dh_next, dc_next
 
 
@@ -150,29 +197,46 @@ def _from_scan(a):
 
 
 def bilstm_train_reference(xp, w_hh, dtype=torch.float32, h0=None, c0=None,
-                           with_cs=False):
+                           with_cs=False, with_gates=False):
     """Plain version of the training forward in the models' layouts:
     xp [N, T, D*4H], w_hh [D, H, 4H], (h0, c0) [D, N, H] (None: zero),
     direction 1 over time T-1..0. Returns (y [N, T, D*H], c_T
-    [D, N, H]), with `with_cs` also cs [N, T, D*H]; the loop of
-    `bilstm_scan_reference` on permuted copies."""
+    [D, N, H]), with `with_cs` then cs [N, T, D*H] and with `with_gates`
+    then the activated gates [N, T, D*4H] in xp's layout (the tensor the
+    H = 128 training forward writes); the loop of `bilstm_scan_reference`
+    on permuted copies."""
     out = bilstm_scan_reference(scan_layout(xp, w_hh.shape[0]), w_hh,
-                                dtype, h0, c0, with_cs)
-    if with_cs:
-        return _from_scan(out[0]), out[1], _from_scan(out[2])
-    return _from_scan(out[0]), out[1]
+                                dtype, h0, c0, with_cs, with_gates)
+    return (_from_scan(out[0]), out[1], *map(_from_scan, out[2:]))
 
 
 def bilstm_train_backward_reference(xp, w_hh, h0, c0, y, cs, dy, dc_t,
                                     matmul=torch.bmm):
-    """Plain version of the training backward in the models' layouts
-    (as `bilstm_train_reference`; dy [N, T, D*H]): (dxp [N, T, D*4H],
-    dh0, dc0 [D, N, H]), through `bilstm_scan_backward_reference`."""
+    """Plain version of the H = 64 training backward in the models'
+    layouts (as `bilstm_train_reference`; dy [N, T, D*H]): (dxp
+    [N, T, D*4H], dh0, dc0 [D, N, H]), through
+    `bilstm_scan_backward_reference`."""
     nd = w_hh.shape[0]
     dxp, dh0, dc0 = bilstm_scan_backward_reference(
         scan_layout(xp, nd), w_hh, h0, c0, scan_layout(y, nd),
         scan_layout(cs, nd), None if dy is None else scan_layout(dy, nd),
         dc_t, matmul)
+    return _from_scan(dxp), dh0, dc0
+
+
+def bilstm_train_gates_backward_reference(gates, w_hh, c0, cs, dy, dc_t,
+                                          matmul=torch.bmm):
+    """Plain version of the H = 128 training backward in the models'
+    layouts: from the forward's activated gates [N, T, D*4H]
+    (`bilstm_train_reference(..., with_gates=True)`), c0 [D, N, H] or
+    None, cs, dy [N, T, D*H] (or None) and dc_t -> (dxp [N, T, D*4H],
+    dh0, dc0 [D, N, H]), through `bilstm_scan_gates_backward_reference`.
+    The same function as `bilstm_train_backward_reference` on the same
+    forward, with one product a step instead of two."""
+    nd = w_hh.shape[0]
+    dxp, dh0, dc0 = bilstm_scan_gates_backward_reference(
+        scan_layout(gates, nd), w_hh, c0, scan_layout(cs, nd),
+        None if dy is None else scan_layout(dy, nd), dc_t, matmul)
     return _from_scan(dxp), dh0, dc0
 
 
@@ -333,16 +397,16 @@ def bilstm_scan_tf32x3_reference(xp, w_hh, h0=None, c0=None,
     return torch.stack(ys), c
 
 
-def bilstm_train_backward_tf32x3_reference(xp, w_hh, h0, c0, y, cs, dy,
-                                           dc_t, matmul=tf32x3_matmul):
+def bilstm_train_backward_tf32x3_reference(gates, w_hh, c0, cs, dy, dc_t,
+                                           matmul=tf32x3_matmul):
     """Plain PyTorch emulation of the H = 128 backward kernel's
-    arithmetic in the models' layouts of `bilstm_train_backward_reference`
-    (everything in float32): the gate recompute h_prev W and the carry
-    dgates W^T both by `tf32x3_matmul` (`matmul`, to try another
-    product). Returns (dxp, dh0, dc0)."""
+    arithmetic in the models' layouts of
+    `bilstm_train_gates_backward_reference` (everything in float32): the
+    carry dgates W^T by `tf32x3_matmul` (`matmul`, to try another
+    product), from the forward's saved gates. Returns (dxp, dh0, dc0)."""
     f32 = (lambda v: None if v is None else v.float())  # noqa: E731
-    return bilstm_train_backward_reference(
-        *map(f32, (xp, w_hh, h0, c0, y, cs, dy, dc_t)), matmul=matmul)
+    return bilstm_train_gates_backward_reference(
+        *map(f32, (gates, w_hh, c0, cs, dy, dc_t)), matmul=matmul)
 
 
 @functools.lru_cache(maxsize=None)
@@ -450,18 +514,25 @@ def tile_rows(n: int, nd: int, device, kernel: str) -> int:
     return min(sorted(cost), key=time)
 
 
-def bilstm_scan_train_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
+def bilstm_scan_train_cuda(xp, w_hh, h0=None, c0=None, save_cs=True,
+                           save_gates=False):
     """Launch the state-saving forward: (y, c_T, cs) as
     `bilstm_train_reference(..., with_cs=True)`; without `save_cs` (a
     pass that keeps no gradient) cs is not written and comes back
-    None. At H = 128 it launches `bilstm_train_fwd_h128_cuda`'s kernel,
-    whose counter counts it; `bilstm_scan_train_cuda.launches` counts the
-    H = 64 kernel."""
+    None. With `save_gates` (H = 128 only) it also returns the activated
+    gates, as `bilstm_train_reference(..., with_gates=True)`. At H = 128
+    it launches `bilstm_train_fwd_h128_cuda`'s kernel, whose counter
+    counts it; `bilstm_scan_train_cuda.launches` counts the H = 64
+    kernel."""
     n, t_len, nd, hidden = _train_shapes(xp, w_hh, "bilstm_scan_train_cuda")
     _check(xp, w_hh, "bilstm_scan_train_cuda", 4 * hidden,
            h0=(h0, (nd, n, hidden)), c0=(c0, (nd, n, hidden)))
     if hidden == 128:
-        return bilstm_train_fwd_h128_cuda(xp, w_hh, h0, c0, save_cs)
+        return bilstm_train_fwd_h128_cuda(xp, w_hh, h0, c0, save_cs,
+                                          save_gates)
+    if save_gates:
+        raise ValueError("bilstm_scan_train_cuda saves the gates at H=128 "
+                         "only")
     y = torch.empty((n, t_len, nd * hidden), device=xp.device,
                     dtype=torch.float32)
     cs = torch.empty_like(y) if save_cs else None
@@ -480,35 +551,37 @@ def bilstm_scan_train_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
 bilstm_scan_train_cuda.launches = 0
 
 
-def bilstm_train_fwd_h128_cuda(xp, w_hh, h0=None, c0=None, save_cs=True):
+def bilstm_train_fwd_h128_cuda(xp, w_hh, h0=None, c0=None, save_cs=True,
+                               save_gates=False):
     """Launch the training forward at H = 128 (`csrc/bilstm_scan.cu`):
-    (y, c_T, cs) as `bilstm_scan_train_cuda`, which checks its inputs
-    and calls this."""
+    (y, c_T, cs), and with `save_gates` the gates [N, T, D*512], as
+    `bilstm_scan_train_cuda`, which checks its inputs and calls this."""
     n, t_len, dg = xp.shape
     nd = dg // 512
     y = torch.empty((n, t_len, nd * 128), device=xp.device,
                     dtype=torch.float32)
     cs = torch.empty_like(y) if save_cs else None
+    gates = torch.empty_like(xp) if save_gates else None
     c_t = torch.empty((nd, n, 128), device=xp.device, dtype=torch.float32)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = lib.bilstm_train_fwd_h128_f32(
         xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), y.data_ptr(),
-        _ptr(cs), c_t.data_ptr(), t_len, nd, n,
+        _ptr(cs), _ptr(gates), c_t.data_ptr(), t_len, nd, n,
         *tile_h128(n, nd, xp.device, "fwd"), stream)
     _build.check(rc, "bilstm_train_fwd_h128_f32")
     bilstm_train_fwd_h128_cuda.launches += 1
-    return y, c_t, cs
+    return (y, c_t, cs) + ((gates,) if save_gates else ())
 
 
 bilstm_train_fwd_h128_cuda.launches = 0
 
 
 def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
-    """Launch the backward: (dxp, dh0, dc0) as
-    `bilstm_train_backward_reference`. At H = 128 it launches
-    `bilstm_train_bwd_h128_cuda`'s kernel, whose counter counts it;
-    `bilstm_scan_bwd_cuda.launches` counts the H = 64 kernel."""
+    """Launch the H = 64 backward: (dxp, dh0, dc0) as
+    `bilstm_train_backward_reference`, counted by
+    `bilstm_scan_bwd_cuda.launches`. The H = 128 backward reads the
+    forward's gates instead of xp and y: `bilstm_train_bwd_h128_cuda`."""
     n, t_len, nd, hidden = _train_shapes(xp, w_hh, "bilstm_scan_bwd_cuda")
     seq, state = (n, t_len, nd * hidden), (nd, n, hidden)
     _check(xp, w_hh, "bilstm_scan_bwd_cuda", 4 * hidden, BACKWARD_WIDTHS,
@@ -517,7 +590,8 @@ def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
     if y is None or cs is None:
         raise ValueError("bilstm_scan_bwd_cuda needs the forward's y and cs")
     if hidden == 128:
-        return bilstm_train_bwd_h128_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t)
+        raise ValueError("bilstm_scan_bwd_cuda: the backward at H=128 takes "
+                         "the forward's gates (bilstm_train_bwd_h128_cuda)")
     dxp = torch.empty_like(xp)
     dh0 = torch.empty(state, device=xp.device, dtype=torch.float32)
     dc0 = torch.empty_like(dh0)
@@ -536,22 +610,30 @@ def bilstm_scan_bwd_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
 bilstm_scan_bwd_cuda.launches = 0
 
 
-def bilstm_train_bwd_h128_cuda(xp, w_hh, h0, c0, y, cs, dy, dc_t):
-    """Launch the backward at H = 128 (`csrc/bilstm_scan.cu`): (dxp, dh0,
-    dc0) as `bilstm_scan_bwd_cuda`, which checks its inputs and calls
-    this."""
-    n, t_len, dg = xp.shape
-    nd = dg // 512
-    dxp = torch.empty_like(xp)
-    dh0 = torch.empty((nd, n, 128), device=xp.device, dtype=torch.float32)
+def bilstm_train_bwd_h128_cuda(gates, w_hh, c0, cs, dy, dc_t):
+    """Launch the backward at H = 128 (`csrc/bilstm_scan.cu`) on the
+    current stream: gates [N, T, D*512] and cs [N, T, D*128] as the
+    training forward saved them (`bilstm_scan_train_cuda(...,
+    save_gates=True)`), w_hh [D, 128, 512], c0 [D, N, 128], dy
+    [N, T, D*128] and dc_t [D, N, 128] or None (zero), float32,
+    contiguous, on one GPU -> (dxp, dh0, dc0) as
+    `bilstm_train_gates_backward_reference`."""
+    name = "bilstm_train_bwd_h128_cuda"
+    n, t_len, nd, hidden = _train_shapes(gates, w_hh, name)
+    seq, state = (n, t_len, nd * hidden), (nd, n, hidden)
+    _check(gates, w_hh, name, 4 * hidden, (128,), c0=(c0, state),
+           cs=(cs, seq), dy=(dy, seq), dc_t=(dc_t, state))
+    if cs is None:
+        raise ValueError(f"{name} needs the forward's cs")
+    dxp = torch.empty_like(gates)
+    dh0 = torch.empty(state, device=gates.device, dtype=torch.float32)
     dc0 = torch.empty_like(dh0)
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    stream = torch.cuda.current_stream(gates.device).cuda_stream
     rc = lib.bilstm_train_bwd_h128_f32(
-        xp.data_ptr(), w_hh.data_ptr(), _ptr(h0), _ptr(c0), y.data_ptr(),
-        cs.data_ptr(), _ptr(dy), _ptr(dc_t), dxp.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), t_len, nd, n, *tile_h128(n, nd, xp.device, "bwd"),
-        stream)
+        gates.data_ptr(), w_hh.data_ptr(), _ptr(c0), cs.data_ptr(),
+        _ptr(dy), _ptr(dc_t), dxp.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        t_len, nd, n, *tile_h128(n, nd, gates.device, "bwd"), stream)
     _build.check(rc, "bilstm_train_bwd_h128_f32")
     bilstm_train_bwd_h128_cuda.launches += 1
     return dxp, dh0, dc0
@@ -564,29 +646,42 @@ class BiLSTMScan(torch.autograd.Function):
     """(xp, w_hh, h0, c0) -> (y, c_T) in the models' layouts,
     differentiable in all four. On the card the forward and backward
     are the kernels (plus the batched product of dW_hh); on the CPU
-    their plain versions, in the inputs' dtype."""
+    their plain versions, in the inputs' dtype. At a width of
+    GATES_SAVED_AT (H = 128) the forward saves its activated gates in
+    place of xp (the same size; xp is nothing else's saved tensor) and the
+    backward reads them, on the CPU as on the card: it saves (gates,
+    w_hh, h0, c0, y, cs); elsewhere (xp, w_hh, h0, c0, y, cs)."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, h0, c0):
+        ctx.gated = w_hh.shape[-2] in GATES_SAVED_AT
         if xp.device.type == "cpu":
-            y, c_t, cs = bilstm_train_reference(xp, w_hh, xp.dtype, h0, c0,
-                                                with_cs=True)
+            out = bilstm_train_reference(xp, w_hh, xp.dtype, h0, c0,
+                                         with_cs=True, with_gates=ctx.gated)
         else:
-            y, c_t, cs = bilstm_scan_train_cuda(xp, w_hh, h0, c0)
-        ctx.save_for_backward(xp, w_hh, h0, c0, y, cs)
+            out = bilstm_scan_train_cuda(xp, w_hh, h0, c0,
+                                         save_gates=ctx.gated)
+        y, c_t, cs = out[:3]
+        ctx.save_for_backward(out[3] if ctx.gated else xp, w_hh, h0, c0, y,
+                              cs)
         return y, c_t
 
     @staticmethod
     def backward(ctx, dy, dc_t):
-        xp, w_hh, h0, c0, y, cs = ctx.saved_tensors
-        if xp.device.type == "cpu":
-            dxp, dh0, dc0 = bilstm_train_backward_reference(
-                xp, w_hh, h0, c0, y, cs, dy, dc_t)
+        saved, w_hh, h0, c0, y, cs = ctx.saved_tensors
+        if saved.device.type == "cpu":
+            dxp, dh0, dc0 = (
+                bilstm_train_gates_backward_reference(saved, w_hh, c0, cs,
+                                                      dy, dc_t)
+                if ctx.gated else bilstm_train_backward_reference(
+                    saved, w_hh, h0, c0, y, cs, dy, dc_t))
         else:
-            dxp, dh0, dc0 = bilstm_scan_bwd_cuda(
-                xp, w_hh, h0, c0, y, cs,
-                None if dy is None else dy.contiguous(),
-                None if dc_t is None else dc_t.contiguous())
+            dy = None if dy is None else dy.contiguous()
+            dc_t = None if dc_t is None else dc_t.contiguous()
+            dxp, dh0, dc0 = (
+                bilstm_train_bwd_h128_cuda(saved, w_hh, c0, cs, dy, dc_t)
+                if ctx.gated else bilstm_scan_bwd_cuda(
+                    saved, w_hh, h0, c0, y, cs, dy, dc_t))
         dw = scan_weight_grad(dxp, y, h0, w_hh.shape[0]) \
             if ctx.needs_input_grad[1] else None
         return (dxp, dw, dh0 if ctx.needs_input_grad[2] else None,

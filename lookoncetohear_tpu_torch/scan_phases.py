@@ -1,6 +1,6 @@
-"""Where a step of the H = 128 scan kernels' time goes (B2 and the
-training forward at H = 128, csrc/bilstm_scan.cu), phase by phase, on
-one GPU.
+"""Where a step of the H = 128 scan kernels' time goes (B2, the
+training forward and its backward at H = 128, csrc/bilstm_scan.cu),
+phase by phase, on one GPU.
 
     python3 -m lookoncetohear_tpu_torch.scan_phases [--baseline DIR]
         [--calls N] [--shape NAME=T,D,N ...] [--tile R,C] [--out FILE]
@@ -17,11 +17,15 @@ phase's time a step is its cycles over the scan, times the CTA's
 nanoseconds per cycle (the two timers' spans), over T: the global timer
 alone ticks too coarsely for phases of tens of nanoseconds.
 
-Each version's entries run at the default `Net`'s three scan shapes
-(B2 at the 64-stream step's [141, 2, 64, 512] and the full forward's
-[141, 2, 500, 512]; the training forward at the full forward's
-inter-time scan, T=500, D=1, N=141, from a carried state, no cs), at
-the tile its own wrapper picks, on inputs made on the card from a seed.
+Each version's entries run at the default `Net`'s scan shapes (B2 at
+the 64-stream step's [141, 2, 64, 512] and the full forward's [141, 2,
+500, 512]; the training forward at the full forward's inter-time scan,
+T=500, D=1, N=141, from a carried state, no cs; the backward at the
+training step's scans (141, 2, 4000) and (500, 1, 1128)), at the tile
+its own wrapper picks, on inputs made on the card from a seed. Each
+version is called through the C signatures its source declares: the
+backward that recomputes the gates takes xp and y, the one that reads
+them the forward's gates; both get the outputs of one forward.
 Prints one JSON object per kernel, shape and version: the median over
 CTAs of each phase's µs a step (median over --calls calls), the median
 CTA's µs a step between its first and last stamp, the launch's span by
@@ -37,10 +41,23 @@ of the step's xp from the ring); the h loads and
 their TF32 split; the three-product MMAs; the reduction of the four
 K-quarters through shared memory (with its named barrier); the gate
 math; the stores and the hand-over (h into every CTA of the cluster, y
-and cs, the prefetch of xp). The stamps add a few instructions a
-phase; the copies are not the kernels the port runs. `--shape` runs
-other shapes instead (NAME starting with "b2" or "fwd"); `--tile`
-runs this tree's copy at that tile instead of its wrapper's.
+and cs, the prefetch of xp). Of the backward that recomputes the gates
+("bwd_recompute"): the prefetch, the wait on the cluster's
+partials of the step and the sum of the 8 slots; dgates (and their
+stores to dxp and shared memory); the block barrier; the dh MMAs; the
+sends (the reduce-scatter); the recompute's MMAs (the gates of the step
+before, from y); their reduction over the four K-quarters (with its
+named barrier); the recompute's gate math. Of the backward that reads
+the gates ("bwd_gates"): the prefetch and the ring's read with
+what does not depend on dh (tanh(c) and the factors of dgates); the
+wait on the cluster's partials and the sum of the 8 slots; dgates and
+their stores; the block barrier; the dh MMAs (with the dgates' loads and
+TF32 split); the sends. The stamps are by thread 0 of each CTA, a cell
+thread of warp 0, which also sends warp 0's partials. The stamps add a
+few instructions a phase; the copies are not the kernels the port runs.
+`--shape` runs other shapes instead (NAME starting with "b2", "fwd" or
+"bwd"); `--tile` runs this tree's copy at that tile instead of its
+wrapper's.
 """
 
 from __future__ import annotations
@@ -59,9 +76,12 @@ import torch
 
 from lookoncetohear_tpu_torch import _build
 
-# kernel -> shape: B2 [T, 2, B]; the training forward (T, D, N)
+# kernel -> shape: B2 [T, 2, B]; the training forward and the backward
+# (T, D, N)
 SHAPES = {"b2_serving": (141, 2, 64), "b2_full_forward": (141, 2, 500),
-          "fwd_full_forward_inter": (500, 1, 141)}
+          "fwd_full_forward_inter": (500, 1, 141),
+          "bwd_train_intra": (141, 2, 4000),
+          "bwd_train_inter": (500, 1, 1128)}
 _SLOTS = 13            # per CTA: 8 phase sums, the timers, the entry
 
 _PRELUDE = r"""
@@ -101,7 +121,9 @@ _END = ("  if (threadIdx.x == 0) {\n    unsigned long long* st_ = "
         "st_[11] = sp_clk(); st_[12] = sp_e0;\n  }\n")
 
 # design -> (phase names, exact (text, instrumented text) replacements in
-# the H = 128 part of the source; each text must occur there exactly once)
+# the H = 128 part of the source; each text must occur there exactly once).
+# A source gets the first forward design ("pair", "mma") whose texts all
+# match and the first backward design ("bwd_*") that does, if any.
 _PROBES = {
     "pair": (
         ["wait on the peer's half", "h loads + product", "reduction",
@@ -143,31 +165,117 @@ _PROBES = {
          ("    // ---- step end\n",
           "    SP_MARK(5)\n    // ---- step end\n"),
          ("  // ---- the end\n", _END + "  // ---- the end\n")]),
+    "bwd_recompute": (
+        ["prefetch + wait + 8-slot sum", "dgates", "block barrier",
+         "dh MMAs", "sends", "recompute MMAs", "recompute reduction",
+         "recompute gates"],
+        [("  using TL = BwdTile<R>;\n", _ENTRY + "  using TL = BwdTile<R>;\n"),
+         ("  // ---- the scan, s = T..0: step T only forms the gates of step "
+          "T-1\n", _BEGIN + "  // ---- the scan, s = T..0\n"),
+         ("  for (int s = T; s >= 0; --s) {\n",
+          "  for (int s = T; s >= 0; --s) {\n    SP_START\n"),
+         ("      const float2 av = a_own[(s % kXD) * P * CELLS];   // "
+          "(c_prev, dy)\n", "      SP_MARK(0)\n      const float2 av = "
+          "a_own[(s % kXD) * P * CELLS];\n"),
+         ("    // this thread's copies of step s-1 have landed; after the "
+          "barrier\n", "    SP_MARK(1)\n"),
+         ("    // ---- dh product\n", "    SP_MARK(2)\n"),
+         ("      // ---- reduce-scatter\n", "      SP_MARK(3)\n"),
+         ("    // ---- gates of step s-1, from h_{s-2} (off the chain)\n",
+          "    SP_MARK(4)\n"),
+         ("#pragma unroll\n      for (int nt = 0; nt < NT; ++nt)\n#pragma "
+          "unroll\n        for (int e = 0; e < 2; ++e)\n          red_s[",
+          "      SP_MARK(5)\n#pragma unroll\n      for (int nt = 0; nt < NT; "
+          "++nt)\n#pragma unroll\n        for (int e = 0; e < 2; ++e)\n"
+          "          red_s["),
+         ("        const float4 xv = x_own[sl * P * CELLS];\n",
+          "        SP_MARK(6)\n        const float4 xv = x_own[sl * P * "
+          "CELLS];\n"),
+         ("        go = sigmoid_rn(a.w + xv.w);\n      }\n",
+          "        go = sigmoid_rn(a.w + xv.w);\n      }\n      SP_MARK(7)\n"),
+         ("  // ---- the end: dh0 from the cluster's partials of step 0\n",
+          _END + "  // ---- the end\n")]),
+    "bwd_gates": (
+        ["prefetch + ring read + factors", "wait + 8-slot sum", "dgates",
+         "block barrier", "dh MMAs", "sends"],
+        [("  using TL = BwdTile<R>;\n", _ENTRY + "  using TL = BwdTile<R>;\n"),
+         ("  // ---- the scan, s = T-1..0\n",
+          _BEGIN + "  // ---- the scan, s = T-1..0\n"),
+         ("  for (int s = T - 1; s >= 0; --s) {\n",
+          "  for (int s = T - 1; s >= 0; --s) {\n    SP_START\n"),
+         ("      // ---- wait\n", "      SP_MARK(0)\n"),
+         ("      // ---- dgates\n", "      SP_MARK(1)\n"),
+         ("    // ---- block barrier\n", "    SP_MARK(2)\n"),
+         ("    // ---- dh product\n", "    SP_MARK(3)\n"),
+         ("    // ---- reduce-scatter\n", "    SP_MARK(4)\n"),
+         ("    // ---- end of the step\n", "    SP_MARK(5)\n"),
+         ("  // ---- the end: dh0 from the cluster's partials of step 0\n",
+          _END + "  // ---- the end\n")]),
 }
 
 
-def instrument(src: str) -> tuple[str, str]:
-    """(design, instrumented source) of a version of bilstm_scan.cu; only
-    the H = 128 part (from `namespace h128`) is probed."""
+def instrument(src: str) -> tuple[dict, str]:
+    """({"fwd": design, "bwd": design or None}, instrumented source) of a
+    version of bilstm_scan.cu; only the H = 128 part (from `namespace
+    h128`) is probed."""
     head, sep, tail = src.partition("namespace h128 {")
     if not sep:
         raise RuntimeError("bilstm_scan.cu has no H = 128 kernels")
+    designs = {"fwd": None, "bwd": None}
     for design, (_, probes) in _PROBES.items():
-        if all(tail.count(a) == 1 for a, _ in probes):
+        kind = "bwd" if design.startswith("bwd") else "fwd"
+        if designs[kind] is None and all(tail.count(a) == 1
+                                         for a, _ in probes):
             for text, new in probes:
                 tail = tail.replace(text, new)
-            inc = "#include <cuda_runtime.h>\n"
-            return design, (head.replace(inc, inc + _PRELUDE, 1) + sep
-                            + tail + _GETTER)
-    raise RuntimeError("no probe set matches this bilstm_scan.cu")
+            designs[kind] = design
+    if designs["fwd"] is None:
+        raise RuntimeError("no probe set matches this bilstm_scan.cu")
+    inc = "#include <cuda_runtime.h>\n"
+    return designs, (head.replace(inc, inc + _PRELUDE, 1) + sep + tail
+                     + _GETTER)
 
 
-def cost_table(tree: Path) -> dict:
-    """H128_TILE_COST as the tree's own wrapper declares it."""
+def cost_table(tree: Path, name: str = "H128_TILE_COST") -> dict:
+    """A tile cost table (H128_TILE_COST, H128_BWD_TILE_COST) as the
+    tree's own wrapper declares it."""
     text = (tree / "lookoncetohear_tpu_torch" / "ops" /
             "bilstm_scan.py").read_text()
-    m = re.search(r"^H128_TILE_COST = (\{.*?\})", text, re.S | re.M)
+    m = re.search(rf"^{name} = (\{{.*?\}})", text, re.S | re.M)
     return ast.literal_eval(m.group(1))
+
+
+def _pointers(src: str, entry: str) -> int:
+    """The tensor pointer parameters of the C entry `entry` in a version
+    of bilstm_scan.cu, its stream aside (0 if it has none)."""
+    m = re.search(rf"int {entry}\(([^)]*)\)", src)
+    return 0 if m is None else m.group(1).count("void*") - 1
+
+
+def signatures(src: str) -> dict:
+    """What a version's H = 128 C entries take: {"fwd": pointer
+    parameters of the training forward (7: no gates output, 8: the
+    gates), "bwd": "recompute" (xp and y), "gates" (the forward's
+    gates) or None (no backward)}."""
+    bwd = _pointers(src, "bilstm_train_bwd_h128_f32")
+    return {"fwd": _pointers(src, "bilstm_train_fwd_h128_f32"),
+            "bwd": {0: None, 11: "recompute", 9: "gates"}[bwd]}
+
+
+def fwd_args(sig, xp, w, h0, c0, y, cs, gates, c_t):
+    """The pointer arguments of a version's training forward entry."""
+    p = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    return [p(v) for v in (xp, w, h0, c0, y, cs) + (
+        (gates,) if sig["fwd"] == 8 else ()) + (c_t,)]
+
+
+def bwd_args(sig, xp, w, h0, c0, y, cs, gates, dy, dc_t, dxp, dh0, dc0):
+    """The pointer arguments of a version's backward entry, from one
+    forward's outputs."""
+    p = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    ins = (xp, w, h0, c0, y, cs, dy, dc_t) if sig["bwd"] == "recompute" \
+        else (gates, w, c0, cs, dy, dc_t)
+    return [p(v) for v in ins + (dxp, dh0, dc0)]
 
 
 def design_of(src: str) -> str:
@@ -182,7 +290,8 @@ def design_of(src: str) -> str:
 def h128_tile(design, lib, cost, n, nd, train):
     """The tile that the version's wrapper picks: (R,) for "pair", (R, C)
     for "mma"; the clusters each tile's kernel holds come from the
-    version's own info entry."""
+    version's own info entry (`train`: 0 B2, 1 the training forward, 2
+    the backward, with the backward's cost table)."""
     def held(key):
         out = (ctypes.c_int * 6)()
         _build.check(lib.bilstm_h128_info(*key, int(train), out), "info")
@@ -198,16 +307,24 @@ def h128_tile(design, lib, cost, n, nd, train):
     return min(sorted(cost), key=time_rc)
 
 
-def bind_h128(lib, design):
+def bind_h128(lib, design, sig=None):
     """ctypes signatures of a version's H = 128 entries, as its source
-    declares them."""
+    declares them (`sig` from `signatures`; None: a forward of 7
+    pointers and no backward)."""
     P, I = ctypes.c_void_p, ctypes.c_int
+    sig = sig or {"fwd": 7, "bwd": None}
     k = 1 if design == "pair" else 2       # R, or R and C
     lib.bilstm_scan_h128_f32.argtypes = [P] * 4 + [I] * (2 + k) + [P]
-    lib.bilstm_train_fwd_h128_f32.argtypes = [P] * 7 + [I] * (3 + k) + [P]
+    lib.bilstm_train_fwd_h128_f32.argtypes = [P] * sig["fwd"] + \
+        [I] * (3 + k) + [P]
     lib.bilstm_h128_info.argtypes = [I] * (k + 1) + [P]
-    for f in ("bilstm_scan_h128_f32", "bilstm_train_fwd_h128_f32",
-              "bilstm_h128_info"):
+    names = ["bilstm_scan_h128_f32", "bilstm_train_fwd_h128_f32",
+             "bilstm_h128_info"]
+    if sig["bwd"]:
+        lib.bilstm_train_bwd_h128_f32.argtypes = [P] * (
+            11 if sig["bwd"] == "recompute" else 9) + [I] * 5 + [P]
+        names.append("bilstm_train_bwd_h128_f32")
+    for f in names:
         getattr(lib, f).restype = I
 
 
@@ -247,25 +364,29 @@ def main() -> int:
     work.mkdir(parents=True, exist_ok=True)
     builds = {}
     for version, tree in trees.items():
-        design, text = instrument(
-            (tree / "lookoncetohear_tpu_torch" / "csrc" / "bilstm_scan.cu")
-            .read_text())
+        source = (tree / "lookoncetohear_tpu_torch" / "csrc" /
+                  "bilstm_scan.cu").read_text()
+        designs, text = instrument(source)
         src = work / f"scan_phases_{version}.cu"
         src.write_text(text)
         lib = work / f"scan_phases_{version}.so"
-        builds[version] = (design, tree, lib, subprocess.Popen(
+        builds[version] = (designs, signatures(source), tree, lib,
+                           subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for version, (design, tree, lib, proc) in builds.items():
+    for version, (designs, sig, tree, lib, proc) in builds.items():
         log, _ = proc.communicate(timeout=_build.NVCC_TIMEOUT_S)
         if proc.returncode:
             print(log, file=sys.stderr)
             return 1
         cdll = ctypes.CDLL(str(lib))
-        bind_h128(cdll, design)
+        bind_h128(cdll, designs["fwd"], sig)
         cdll.scan_phase_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        libs[version] = (design, cdll, cost_table(tree))
+        costs = {"fwd": cost_table(tree)}
+        if designs["bwd"]:
+            costs["bwd"] = cost_table(tree, "H128_BWD_TILE_COST")
+        libs[version] = (designs, sig, cdll, costs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -279,7 +400,8 @@ def main() -> int:
         shapes = {k: tuple(int(v) for v in s.split(","))
                   for k, s in (a.split("=") for a in args.shape)}
     for key, (t_, nd, n) in shapes.items():
-        train = key.startswith("fwd")
+        kind = key.split("_")[0]
+        train = kind != "b2"
 
         def r_(*shape, k=0.5):
             return torch.randn(shape, generator=g, device=dev) * k
@@ -292,15 +414,37 @@ def main() -> int:
             xp, w = r_(t_, 2, n, 512), r_(2, 128, 512, k=0.2)
             y, c_t = torch.empty(t_, 2, n, 128, device=dev), \
                 torch.empty(2, n, 128, device=dev)
-        for version, (design, cdll, cost) in libs.items():
-            tile = h128_tile(design, cdll, cost, n, nd, train)
+        if kind == "bwd":
+            # one forward's y, cs and gates for every version's backward
+            cs, gates = torch.empty_like(y), torch.empty_like(xp)
+            this_sig = libs["this"][1]
+            _build.check(libs["this"][2].bilstm_train_fwd_h128_f32(
+                *fwd_args(this_sig, xp, w, h0, c0, y, cs, gates, c_t),
+                t_, nd, n, *h128_tile("mma", libs["this"][2],
+                                      libs["this"][3]["fwd"], n, nd, 1),
+                stream), "training forward")
+            dy, dct = r_(n, t_, nd * 128, k=1.0), r_(nd, n, 128, k=1.0)
+            dxp, dh0, dc0 = (torch.empty_like(xp), torch.empty_like(c_t),
+                             torch.empty_like(c_t))
+        for version, (designs, sig, cdll, costs) in libs.items():
+            if kind == "bwd" and not designs["bwd"]:
+                continue
+            design = designs["bwd" if kind == "bwd" else "fwd"]
+            tile = h128_tile(designs["fwd"], cdll, costs[
+                "bwd" if kind == "bwd" else "fwd"], n, nd,
+                ("b2", "fwd", "bwd").index(kind))
             if args.tile and version == "this":
                 tile = tuple(int(v) for v in args.tile.split(","))
-            if train:
+            if kind == "bwd":
+                def run():
+                    _build.check(cdll.bilstm_train_bwd_h128_f32(
+                        *bwd_args(sig, xp, w, h0, c0, y, cs, gates, dy, dct,
+                                  dxp, dh0, dc0), t_, nd, n, *tile, stream),
+                        "backward")
+            elif train:
                 def run():
                     _build.check(cdll.bilstm_train_fwd_h128_f32(
-                        xp.data_ptr(), w.data_ptr(), h0.data_ptr(),
-                        c0.data_ptr(), y.data_ptr(), None, c_t.data_ptr(),
+                        *fwd_args(sig, xp, w, h0, c0, y, None, None, c_t),
                         t_, nd, n, *tile, stream), "training forward")
             else:
                 def run():
@@ -309,6 +453,9 @@ def main() -> int:
                         c_t.data_ptr(), t_, n, *tile, stream), "B2")
             r = tile[0]
             ctas = nd * -(-n // r) * (2 if design == "pair" else tile[1])
+            if ctas * _SLOTS > 1 << 18:
+                raise RuntimeError(f"{key}: {ctas} CTAs, more than the "
+                                   f"stamps hold")
             host = np.zeros(ctas * _SLOTS, dtype=np.uint64)
             names = _PROBES[design][0]
             calls, spans = [], []
@@ -334,6 +481,8 @@ def main() -> int:
             results.append(row)
             print(json.dumps(row), flush=True)
         del xp, w, y, c_t
+        if kind == "bwd":
+            del cs, gates, dy, dct, dxp, dh0, dc0
         torch.cuda.empty_cache()
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -19,8 +19,10 @@ default `Net`'s scans (B2 at its 64-stream step [141, 2, 64], the full
 forward's [141, 2, 500] and the eval's batch of 4 [141, 2, 2000]; the
 training forward at the full forward's inter-time scan (500, 1, 141),
 the eval's (500, 1, 564) and the training step's at 8 x 5 s, (141, 2,
-4000) and (500, 1, 1128), from a carried state where D = 1, without cs;
-the backward at those two training scans): each tile's build and the
+4000) and (500, 1, 1128), from a carried state where D = 1, without cs,
+and at the two training scans also with cs and the gates, as a step
+that keeps its gradient runs it; the backward at those two training
+scans, from the gates and cs of one forward): each tile's build and the
 clusters the card holds at once, its median device time, its largest
 difference from the plain version, and whether `tile_h128` picks it
 (`--h128`: only these).
@@ -43,7 +45,8 @@ import torch
 from lookoncetohear_tpu_torch import _build
 from lookoncetohear_tpu_torch.ops.bilstm_scan import (
     TRAIN_TILE_COST, bilstm_scan_reference, bilstm_train_backward_reference,
-    bilstm_train_reference, h128_tiles, tile_h128, tile_rows)
+    bilstm_train_gates_backward_reference, bilstm_train_reference,
+    h128_tiles, tile_h128, tile_rows)
 from lookoncetohear_tpu_torch.timing import device_ms
 
 SHAPES = {"tse_intra": (97, 2, 5000), "tse_inter": (625, 1, 776),
@@ -57,6 +60,8 @@ H128_SHAPES = {"b2_serving": (141, 2, 64), "b2_full_forward": (141, 2, 500),
                "fwd_eval_inter": (500, 1, 564),
                "fwd_train_intra": (141, 2, 4000),
                "fwd_train_inter": (500, 1, 1128),
+               "fwdg_train_intra": (141, 2, 4000),
+               "fwdg_train_inter": (500, 1, 1128),
                "bwd_train_intra": (141, 2, 4000),
                "bwd_train_inter": (500, 1, 1128)}
 REPS = 10  # timed launches of each kernel at each tile and shape
@@ -163,6 +168,9 @@ def sweep_h128(lib, emit, dev, g, stream):
                  **dict(zip(INFO_H128, out)))
     for key, (t_, nd, n) in H128_SHAPES.items():
         kernel = key.split("_")[0]
+        # "fwdg": the training forward saving cs and the gates
+        saving = kernel in ("fwdg", "bwd")
+        kernel = "fwd" if kernel == "fwdg" else kernel
 
         def r_(*shape, k=0.5):
             return torch.randn(shape, generator=g, device=dev) * k
@@ -181,24 +189,25 @@ def sweep_h128(lib, emit, dev, g, stream):
             h0, c0 = (r_(nd, n, 128), r_(nd, n, 128)) if nd == 1 \
                 else (None, None)
             want = bilstm_train_reference(xp, w, torch.float32, h0, c0,
-                                          with_cs=kernel == "bwd")
+                                          with_cs=saving, with_gates=saving)
             if kernel == "bwd":
-                y, cs = want[0], want[2]
+                cs, gates = want[2:]
                 dy, dct = r_(n, t_, nd * 128, k=1.0), r_(nd, n, 128, k=1.0)
-                want = bilstm_train_backward_reference(xp, w, h0, c0, y, cs,
-                                                       dy, dct)
+                want = bilstm_train_gates_backward_reference(gates, w, c0, cs,
+                                                             dy, dct)
             got = tuple(torch.empty_like(e) for e in want)
 
             def run(tile, i):
                 if kernel == "fwd":
                     _build.check(lib.bilstm_train_fwd_h128_f32(
-                        p(xp), p(w), p(h0), p(c0), p(got[0]), None,
-                        p(got[1]), t_, nd, n, *tile, stream),
-                        "bilstm_train_fwd_h128_f32")
+                        p(xp), p(w), p(h0), p(c0), p(got[0]),
+                        p(got[2]) if saving else None,
+                        p(got[3]) if saving else None, p(got[1]), t_, nd, n,
+                        *tile, stream), "bilstm_train_fwd_h128_f32")
                 else:
                     _build.check(lib.bilstm_train_bwd_h128_f32(
-                        p(xp), p(w), p(h0), p(c0), p(y), p(cs), p(dy),
-                        p(dct), *map(p, got), t_, nd, n, *tile, stream),
+                        p(gates), p(w), p(c0), p(cs), p(dy), p(dct),
+                        *map(p, got), t_, nd, n, *tile, stream),
                         "bilstm_train_bwd_h128_f32")
         for tile in h128_tiles(kernel):
             run(tile, 0)

@@ -543,9 +543,11 @@ def test_bilstm_train_fwd_h128_matches_plain(dev, t, nd, n, carried):
     """The training forward at H = 128 in the models' layouts: the full
     forward's and the eval's inter-time scans (T=500, D=1, N=141 and
     564) from (h0, c0), both directions from zero and from (h0, c0), and
-    scans of 1 and 2 steps, at every tile (R, C); y, c_T and every c
-    against the plain version at 2e-5 of the peak up to 97 steps, 1e-4
-    beyond (as at H = 64); without cs the same y and c_T bit for bit."""
+    scans of 1 and 2 steps, at every tile (R, C); y, c_T, every c and
+    every step's activated gates (the backward's input) against the
+    plain version at 2e-5 of the peak up to 97 steps, 1e-4 beyond (as
+    at H = 64); without the gates, and without cs, the same y and c_T
+    bit for bit."""
     from lookoncetohear_tpu_torch import _build
     from lookoncetohear_tpu_torch.ops.bilstm_scan import (
         bilstm_scan_train_cuda, bilstm_train_fwd_h128_cuda,
@@ -555,64 +557,79 @@ def test_bilstm_train_fwd_h128_matches_plain(dev, t, nd, n, carried):
     xp, w = r(n, t, nd * 512), r(nd, 128, 512, k=0.2)
     h0, c0 = (r(nd, n, 128), r(nd, n, 128)) if carried else (None, None)
     want = bilstm_train_reference(xp, w, torch.float32, h0, c0,
-                                  with_cs=True)
+                                  with_cs=True, with_gates=True)
     tol = 2e-5 if t <= 97 else 1e-4
     before = bilstm_train_fwd_h128_cuda.launches
-    runs = [bilstm_scan_train_cuda(xp, w, h0, c0)]
+    runs = [bilstm_scan_train_cuda(xp, w, h0, c0, save_gates=True)]
+    plain = bilstm_scan_train_cuda(xp, w, h0, c0)
     lean = bilstm_scan_train_cuda(xp, w, h0, c0, save_cs=False)
-    assert bilstm_train_fwd_h128_cuda.launches == before + 2
+    assert bilstm_train_fwd_h128_cuda.launches == before + 3
     lib = _build.load_library()
     p = lambda v: None if v is None else v.data_ptr()
     for tile in H128_TILE_COST:
         out = tuple(torch.empty_like(e) for e in want)
         _build.check(lib.bilstm_train_fwd_h128_f32(
-            p(xp), p(w), p(h0), p(c0), p(out[0]), p(out[2]), p(out[1]),
-            t, nd, n, *tile, torch.cuda.current_stream().cuda_stream),
+            p(xp), p(w), p(h0), p(c0), p(out[0]), p(out[2]), p(out[3]),
+            p(out[1]), t, nd, n, *tile,
+            torch.cuda.current_stream().cuda_stream),
             "bilstm_train_fwd_h128_f32")
         runs.append(out)
     torch.cuda.synchronize()
     for got in runs:
+        assert len(got) == 4
         for a, e in zip(got, want):
             torch.testing.assert_close(
                 a, e, rtol=0, atol=tol * max(1.0, e.abs().max().item()))
-    assert lean[2] is None
-    assert torch.equal(lean[0], runs[0][0]) and torch.equal(lean[1],
+    assert len(plain) == 3 and lean[2] is None
+    for v in (plain, lean):
+        assert torch.equal(v[0], runs[0][0]) and torch.equal(v[1],
                                                              runs[0][1])
+    assert torch.equal(plain[2], runs[0][2])
 
 
 @pytest.mark.parametrize("t,nd,n", [(1, 2, 9), (2, 1, 17), (3, 2, 13),
                                     (141, 2, 64), (141, 1, 37),
                                     (500, 1, 141), (500, 2, 9)])
 def test_bilstm_train_bwd_h128_matches_plain(dev, t, nd, n):
-    """The backward at H = 128 (clusters of 8 CTAs, a reduce-scatter of
-    dh over the cluster) in the models' layouts, from a nonzero (h0, c0)
-    and with dy and dc_T, against the plain version on the forward's y
-    and cs: dxp, dh0 and dc0 at 2e-5 of each output's peak up to 141
-    steps and 1e-4 at 500 (as at H = 64), through the wrapper and
-    through the C entry at every tile (R, C) of the backward's table;
-    scans of 1 to 3 steps (the double buffer's first phases) and row
-    counts no tile divides."""
+    """The backward at H = 128 (clusters of 8 CTAs, two an SM, a
+    reduce-scatter of dh over the cluster) in the models' layouts, from
+    a nonzero (h0, c0) and with dy and dc_T, against the plain version
+    on the forward's gates and cs (themselves held to the plain forward):
+    dxp, dh0 and dc0 at 2e-5 of each output's peak up to 141 steps and 1e-4 at 500 (as at H = 64),
+    through the wrapper and through the C entry at every tile (R, C) of
+    the backward's table; scans of 1 to 3 steps (the double buffer's
+    first phases) and row counts no tile divides. The wrapper refuses
+    nothing of the forward's outputs, and `bilstm_scan_bwd_cuda` (the
+    H = 64 entry, which takes xp) refuses H = 128."""
     from lookoncetohear_tpu_torch import _build
     from lookoncetohear_tpu_torch.ops.bilstm_scan import (
         H128_BWD_TILE_COST, bilstm_scan_bwd_cuda, bilstm_scan_train_cuda,
-        bilstm_train_backward_reference, bilstm_train_bwd_h128_cuda)
+        bilstm_train_bwd_h128_cuda, bilstm_train_gates_backward_reference,
+        bilstm_train_reference)
     g = torch.Generator().manual_seed(t + nd + n)
     r = lambda *s, k=0.5: (torch.randn(*s, generator=g) * k).to(dev)
     xp, w = r(n, t, nd * 512), r(nd, 128, 512, k=0.2)
     h0, c0, dys, dct = r(nd, n, 128), r(nd, n, 128), \
         r(n, t, nd * 128, k=1.0), r(nd, n, 128, k=1.0)
-    y, _, cs = bilstm_scan_train_cuda(xp, w, h0, c0)
-    want = bilstm_train_backward_reference(xp, w, h0, c0, y, cs, dys, dct)
+    y, _, cs, gates = bilstm_scan_train_cuda(xp, w, h0, c0, save_gates=True)
+    want = bilstm_train_gates_backward_reference(gates, w, c0, cs, dys, dct)
     tol = 2e-5 if t <= 141 else 1e-4
+    fwd = bilstm_train_reference(xp, w, torch.float32, h0, c0, with_cs=True,
+                                 with_gates=True)
+    for a, e in zip((cs, gates), fwd[2:]):
+        torch.testing.assert_close(
+            a, e, rtol=0, atol=tol * max(1.0, e.abs().max().item()))
     before = bilstm_train_bwd_h128_cuda.launches
-    runs = [bilstm_scan_bwd_cuda(xp, w, h0, c0, y, cs, dys, dct)]
+    runs = [bilstm_train_bwd_h128_cuda(gates, w, c0, cs, dys, dct)]
     assert bilstm_train_bwd_h128_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="gates"):
+        bilstm_scan_bwd_cuda(xp, w, h0, c0, y, cs, dys, dct)
     lib = _build.load_library()
     p = lambda v: None if v is None else v.data_ptr()
     for tile in H128_BWD_TILE_COST:
         out = tuple(torch.empty_like(e) for e in want)
         _build.check(lib.bilstm_train_bwd_h128_f32(
-            p(xp), p(w), p(h0), p(c0), p(y), p(cs), p(dys), p(dct),
+            p(gates), p(w), p(c0), p(cs), p(dys), p(dct),
             p(out[0]), p(out[1]), p(out[2]), t, nd, n, *tile,
             torch.cuda.current_stream().cuda_stream),
             "bilstm_train_bwd_h128_f32")
@@ -635,7 +652,9 @@ def test_h128_gradient_runs_the_backward_kernel(dev, monkeypatch):
     def plain(*a, **k):
         raise AssertionError("a plain version ran on the card")
     for name in ("bilstm_train_reference", "bilstm_train_backward_reference",
-                 "bilstm_scan_reference", "bilstm_scan_backward_reference"):
+                 "bilstm_train_gates_backward_reference",
+                 "bilstm_scan_reference", "bilstm_scan_backward_reference",
+                 "bilstm_scan_gates_backward_reference"):
         monkeypatch.setattr(bs, name, plain)
     torch.manual_seed(0)
     bi = LSTM(16, 128, bidirectional=True).to(dev)

@@ -7,12 +7,19 @@ backward kernel to the plain version):
     `scan_weight_grad`) through `lstm_apply` from a carried (h0, c0) at
     T = 1 and 500 and `lstm_apply_bidir` at T = 141, against `jax.grad`
     of the JAX package's `lstm_apply` / `lstm_apply_bidir`, in float64 on
-    both sides: every gradient within 1e-4 of its peak;
+    both sides: every gradient within 1e-4 of its peak, from the gates
+    the forward saves (what `BiLSTMScan` does at H = 128) and from xp,
+    recomputing them (the H = 64 kernel's plain version);
+  * the gates-based plain backward equal to the xp-based one on one
+    forward in float64;
   * the backward kernel's arithmetic, emulated in float32
-    (`bilstm_train_backward_tf32x3_reference`: both products, h_prev W
-    and dgates W^T, in three TF32 products), against `jax.grad` of the
-    JAX recurrence in float64 at the same shapes and tolerance, and one
-    TF32 product, which misses it;
+    (`bilstm_train_backward_tf32x3_reference`: the carry dgates W^T in
+    three TF32 products, from the forward's saved gates), against
+    `jax.grad` of the JAX recurrence in float64 at the same shapes and
+    tolerance, and one TF32 product, which misses it;
+  * `BiLSTMScan` at H = 128 saves the gates and no tensor of xp's
+    storage: its saved bytes are those of gates, y, cs, w_hh and the
+    states (at H = 64 it saves xp);
   * a `TSETask` step of the default `Net`'s geometry (chunk 160 + pad
     120, F = 141, H = 128, no attention) at 2 blocks and D = 8 on a
     0.1 s batch: the loss and every parameter gradient against the JAX
@@ -79,11 +86,19 @@ def _peak_close(got, want, tol=TOL, what=""):
 
 # ---- the plain backward against jax.grad ------------------------------------
 
-@pytest.mark.parametrize("nd,t,carried", CASES)
-def test_plain_backward_matches_jax_grad(nd, t, carried):
+@pytest.mark.parametrize("nd,t,carried,saved", [
+    pytest.param(*case, saved, id="-".join(map(str, case)) + (
+        "-gates" if saved == "gates" else ""))
+    for saved in ("xp", "gates") for case in CASES])
+def test_plain_backward_matches_jax_grad(nd, t, carried, saved,
+                                         monkeypatch):
     """Through the port's LSTM ops in float64: the gradients of x, every
     weight and (h0, c0) of a loss over y and the final states ==
-    jax.grad of the JAX package's `lstm_apply` / `lstm_apply_bidir`."""
+    jax.grad of the JAX package's `lstm_apply` / `lstm_apply_bidir`;
+    `BiLSTMScan` saving the forward's gates (as at H = 128) or xp (as
+    at H = 64, the gates recomputed)."""
+    if saved == "xp":
+        monkeypatch.setattr(bs, "GATES_SAVED_AT", ())
     rng = np.random.default_rng(16 + t)
     b, i = 2, 8
     ps = [[_np(rng, s, 0.2) for s in ((4 * H, i), (4 * H, H), (4 * H,),
@@ -183,10 +198,11 @@ def _emulated_errors(case, matmul):
     xp, w, h0, c0, dy, dct = case
     want = _jax_scan_grads(*case)
     tt = (lambda a: None if a is None else torch.from_numpy(a))  # noqa
-    y, _, cs = bs.bilstm_train_reference(tt(xp), tt(w), torch.float32,
-                                         tt(h0), tt(c0), with_cs=True)
+    y, _, cs, gates = bs.bilstm_train_reference(
+        tt(xp), tt(w), torch.float32, tt(h0), tt(c0), with_cs=True,
+        with_gates=True)
     dxp, dh0, dc0 = bs.bilstm_train_backward_tf32x3_reference(
-        tt(xp), tt(w), tt(h0), tt(c0), y, cs, tt(dy), tt(dct), matmul)
+        gates, tt(w), tt(c0), cs, tt(dy), tt(dct), matmul)
     dw = bs.scan_weight_grad(dxp, y, tt(h0), w.shape[0])
     got = [dxp, dw] + ([dh0, dc0] if h0 is not None else [])
     return [float(np.abs(g.double().numpy() - e).max() / np.abs(e).max())
@@ -195,9 +211,10 @@ def _emulated_errors(case, matmul):
 
 @pytest.mark.parametrize("nd,t,carried", CASES)
 def test_three_product_backward_matches_jax_grad(nd, t, carried):
-    """The backward kernel's arithmetic in float32, both products in
-    three TF32 products, from the forward's float32 y and cs: dxp, dh0,
-    dc0 and dW_hh within 1e-4 of their peaks of jax.grad in float64."""
+    """The backward kernel's arithmetic in float32, its product in three
+    TF32 products, from the forward's float32 gates, y and cs: dxp,
+    dh0, dc0 and dW_hh within 1e-4 of their peaks of jax.grad in
+    float64."""
     errs = _emulated_errors(_scan_case(nd, t, carried, 160 + t),
                             bs.tf32x3_matmul)
     assert max(errs) <= TOL, errs
@@ -209,6 +226,57 @@ def test_one_tf32_product_misses_the_tolerance():
     the three-product split is what holds it."""
     errs = _emulated_errors(_scan_case(2, 141, False, 301), _tf32x1_matmul)
     assert max(errs) > TOL, errs
+
+
+# ---- the gates-based backward ----------------------------------------------
+
+@pytest.mark.parametrize("nd,t,carried", CASES)
+def test_gates_backward_equals_xp_backward(nd, t, carried):
+    """On one float64 forward, the backward from the saved gates (one
+    product a step) gives the xp-based backward's dxp, dh0 and dc0 (two
+    products a step, the gates recomputed) within 1e-12 of each peak."""
+    xp, w, h0, c0, dy, dct = (None if a is None else torch.from_numpy(
+        a.astype(np.float64)) for a in _scan_case(nd, t, carried, 170 + t))
+    y, _, cs, gates = bs.bilstm_train_reference(
+        xp, w, torch.float64, h0, c0, with_cs=True, with_gates=True)
+    assert gates.shape == xp.shape
+    want = bs.bilstm_train_backward_reference(xp, w, h0, c0, y, cs, dy, dct)
+    got = bs.bilstm_train_gates_backward_reference(gates, w, c0, cs, dy, dct)
+    for g, e in zip(got, want):
+        _peak_close(g.numpy(), e.numpy(), tol=1e-12)
+
+
+@pytest.mark.parametrize("hidden", [128, 64])
+def test_bilstm_scan_saves_gates_not_xp(hidden):
+    """At H = 128 `BiLSTMScan` saves the forward's gates and no tensor of
+    xp's storage, and its saved bytes are those of gates, y, cs, w_hh,
+    h0 and c0 (xp's size: nothing more than before); at H = 64 it saves
+    xp itself. The gradient still reaches xp."""
+    n, t, nd = 3, 5, 1
+    g = torch.Generator().manual_seed(hidden)
+    xp = torch.randn(n, t, nd * 4 * hidden, generator=g,
+                     dtype=torch.float64, requires_grad=True)
+    w = torch.randn(nd, hidden, 4 * hidden, generator=g,
+                    dtype=torch.float64, requires_grad=True) * 0.1
+    h0, c0 = (torch.randn(nd, n, hidden, generator=g, dtype=torch.float64)
+              for _ in range(2))
+    saved = []
+
+    def pack(v):
+        saved.append(v)
+        return v
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda v: v):
+        y, c_t = bs.bilstm_scan_train(xp, w, h0, c0)
+    storages = {v.untyped_storage().data_ptr() for v in saved}
+    seq = n * t * nd * hidden
+    if hidden == 128:
+        assert xp.untyped_storage().data_ptr() not in storages
+        assert sum(v.numel() for v in saved) == (
+            4 * seq + seq + seq + w.numel() + h0.numel() + c0.numel())
+    else:
+        assert xp.untyped_storage().data_ptr() in storages
+    (y.sum() + c_t.sum()).backward()
+    assert xp.grad is not None and torch.isfinite(xp.grad).all()
 
 
 # ---- the default Net's training step against the JAX package ---------------
