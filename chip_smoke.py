@@ -72,9 +72,16 @@ Then training, every LSTM recurrence on the port's training kernels
     same step with every block checkpointed, and both training kernels
     at the four shapes beside their plain versions and cuDNN's
     `nn.LSTM` forward + backward.
-Then `corpus_phases`: the reference configs (configs/tsh.json,
-configs/embed.json) through the trainer CLI on a LibriSpeech-format
-corpus generated in a temporary directory, the render rate of their
+Then `corpus_phases`: on a LibriSpeech-format corpus generated in a
+temporary directory, the d-vector precompute (the `dvector_embeddings`
+CLI with EmbedNet from the committed npz and from a reference-format
+Lightning checkpoint, over the corpus and utterances of 2, 15 and 35 s:
+6 BiLSTM launches an utterance, card against CPU, B2 at the 35 s
+utterance's scans against its plain version; a configs/tsh.json training
+step on the d-vectors written; the eval from a reference-format
+checkpoint, card against CPU; `--embed_from_wav` refused without
+resemblyzer), the reference configs (configs/tsh.json,
+configs/embed.json) through the trainer CLI, the render rate of their
 dataset, the same TSE epoch with `--prerender` (rendering the cache,
 then reading it; a cached validation batch equal to a fresh render; the
 cache's read rate through the loader), moving sources (the native
@@ -235,6 +242,26 @@ CORPUS_SPEAKERS = 8
 CORPUS_UTTS = 3
 CORPUS_SECONDS = 6.0
 CORPUS_SCENES = {"train-clean-360": 24, "dev-clean": 10, "test-clean": 10}
+# the d-vector precompute ("path: d-vector precompute"): the port's
+# dvector_embeddings CLI (embednet backend, configs/embed_synthetic_5k.json)
+# over the corpus's utterances and one more split of utterances across
+# LibriSpeech's range of lengths (DV_SPLIT, speaker DV_SPEAKER)
+DV_SPLIT = "test-other"
+DV_SPEAKER = "4000"
+DV_SECONDS = (2.0, 15.0, 35.0)
+# the card against the CPU's run of the same CLI on the same files. The
+# CPU's EmbedNet takes about a second per second of audio on the card's
+# host (this phase logs its runs' times), minutes for the CLI's 75
+# utterances, and grows faster than the audio (its T x T attention), so
+# the CPU runs it on the utterances of the lengths below (seconds), one
+# process of DV_CPU_THREADS threads per checkpoint, beside the phase's work
+# on the card; the longest utterance is held instead to EmbedNet on the
+# card with every scan on B2's plain version
+DV_CPU = {"npz": (2.0, 15.0), "reference": (2.0, CORPUS_SECONDS)}
+DV_CPU_THREADS = 4
+DV_LIMIT = 70                 # the phase's watchdog, seconds
+# ts_hear_test from a reference-format checkpoint, card against CPU
+DV_EVAL_SCENES = 4
 # the loader's render rate: RATE_ROUNDS batches per worker, the rate
 # taken from the end of the second round to the end of the last
 RATE_ROUNDS = 7
@@ -343,8 +370,15 @@ PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_train_fwd_kernel",
                 "bilstm_h128_bwd_kernel",
                 "ring_int8_step_kernel", "attn_step_kernel")
 # traces of a profile at most: eager-engine traces holding 29 of 10
-# steps' 30 B2 launches came back in two runs of this script
+# steps' 30 B2 launches came back in two runs of this script, and on
+# some hosts every trace of a profile lacks the same one record (11 of a
+# step's 12 H=128 forwards, 59 of 60 B2 at H=128 in 10 graph replays)
 TRACE_TRIES = 3
+# records of a kernel the tracer may lose from the fullest of those
+# traces, where the launches are proven without it (the wrappers'
+# counters, or a graph held bit for bit to the eager engine): a tenth of
+# the launches, at least one
+TRACE_LOSS = 10
 # head-major rows of the float ring at 64 streams (64 x 4 heads); odd_dk
 # a K width whose rows start 1- or 2-byte aligned
 ATTN = dict(rows=STREAMS * 4, w1=49, dk=97 * 6, dv=97 * 16, odd_dk=525)
@@ -382,7 +416,7 @@ def phase(name: str, limit_s: int, fn, grad: bool = False):
 
 
 def profile_steps(eng, xs, torch, expect, absent=(),
-                  counters=None) -> dict:
+                  counters=None, replays=None) -> dict:
     """Where a step's device time goes: kernel time by name and the
     device's busy share, from a torch.profiler trace of len(xs) steps.
     Fails unless each kernel of the port in `expect` ({counter name:
@@ -393,10 +427,16 @@ def profile_steps(eng, xs, torch, expect, absent=(),
     TRACE_TRIES traces in all. `counters` (reset, read) of the kernel
     wrappers, for an eager engine: every trace's steps must have
     launched exactly `expect`, so a short trace is shown to have lost
-    records, not launches (a graph replays every node it captured)."""
+    records, not launches. `replays`, for a graph engine: what showed
+    that its graph launches `expect` a replay (a graph replays every node
+    it captured). Where one of the two proves the launches and every
+    trace is short, the fullest is kept if it lacks at most a
+    TRACE_LOSS-th of each kernel's records (at least one) and holds each
+    kernel; its losses come back as `trace_records_lost`."""
     from torch.profiler import ProfilerActivity, profile
     n = len(xs)
     want = {k: per_step * n for k, per_step in expect.items()}
+    best = None
     for attempt in range(1, TRACE_TRIES + 1):
         if counters:
             counters[0]()
@@ -421,14 +461,25 @@ def profile_steps(eng, xs, torch, expect, absent=(),
             raise AssertionError(f"profiler: {ran} and {other} other "
                                  f"kernels of the port in {n} steps, "
                                  f"want {want} and none")
+        if best is None or sum(ran.values()) > sum(best[1].values()):
+            best = (kern, ran)
         if ran == want:
             break
         log(f"  profiler, trace {attempt} of {TRACE_TRIES}: {ran} in {n} "
             f"steps, want {want}: kernel records missing"
             + (" (the wrappers counted every launch)" if counters else ""))
     else:
-        raise AssertionError(f"profiler: all {TRACE_TRIES} traces short "
-                             f"of {want}")
+        kern, ran = best
+        lost = {k: want[k] - ran[k] for k in want}
+        proof = ("the wrappers counted every launch of every trace"
+                 if counters else replays)
+        if not proof or any(v > max(1, want[k] // TRACE_LOSS) or not ran[k]
+                            for k, v in lost.items()):
+            raise AssertionError(f"profiler: all {TRACE_TRIES} traces short "
+                                 f"of {want}, the fullest by {lost}"
+                                 + ("" if proof else ", launches unproven"))
+        log(f"  profiler: the tracer lost {lost} of {want} records in every "
+            f"trace; kept the fullest, as {proof}")
     log(f"  profiler: {', '.join(f'{v} {k}' for k, v in expect.items())} a "
         f"step and no other kernel of the port")
     by_name: dict = {}
@@ -451,12 +502,13 @@ def profile_steps(eng, xs, torch, expect, absent=(),
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us / n:9.1f} us/step  {name[:100]}")
     for bad in absent:
-        ran = [name for name in by_name if bad in name]
-        if ran:
-            raise AssertionError(f"{ran[0]} ran on this path")
+        hits = [name for name in by_name if bad in name]
+        if hits:
+            raise AssertionError(f"{hits[0]} ran on this path")
         log(f"  no {bad} among the {len(by_name)} kernels of the trace")
     return dict(device_ops_per_step=len(kern) / n,
-                device_busy_ms=busy / n / 1e3, busy_share=busy / window)
+                device_busy_ms=busy / n / 1e3, busy_share=busy / window,
+                trace_records_lost={k: want[k] - ran[k] for k in want})
 
 
 def attn_bound(b, w1, dk, dv, q_bytes, kv_bytes, scaled):
@@ -525,7 +577,394 @@ def child_pids() -> list:
     return out
 
 
-def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
+def dvector_phase(torch, smi, root, ref_config, res, reset_counts,
+                  read_counts, expect_counts):
+    """The reference pipeline's order on the card: the corpus, then its
+    d-vectors, then training on them. `root` holds the corpus that
+    "data: LibriSpeech-format corpus" wrote; `ref_config(which)` is
+    corpus_phases' (a configs/{which}.json re-pointed at it).
+      * the port's dvector_embeddings CLI, `--backend embednet`, from a
+        run dir whose best.ckpt is checkpoints/embed_r5_5k_best.npz, over
+        the corpus's 72 utterances of 6 s and a split DV_SPLIT of
+        utterances of DV_SECONDS: 6 B2 launches an utterance and no other
+        kernel; the same from a reference-format Lightning best.ckpt
+        (`reference_embed`, converted on load); each against the CPU's run
+        of the CLI on the utterances of DV_CPU, and the longest against
+        the same EmbedNet on the card with B2 swapped for its plain
+        version, to TOL_ENROLL of the peak;
+      * B2 at the longest utterance's six scans against its plain version
+        (TOL_LSTM_LONG beyond 97 steps), block 0's two timed beside the
+        bound and cuDNN's nn.LSTM;
+      * one `Trainer.train_step` of configs/tsh.json with its embed_dir at
+        the d-vectors just written: every item's embedding_gt is the
+        CLI's for its enrollment utterance, the loss finite;
+      * `ts_hear_test.run` from a reference-format Lightning best.ckpt of
+        `reference_tse`, oracle, on DV_EVAL_SCENES scenes of the test
+        split (whose d-vectors the CLI wrote), the card's CSV held to the
+        CPU's;
+      * `--embed_from_wav` raises resemblyzer's ImportError before any
+        work where resemblyzer is absent."""
+    import importlib.util
+    import shutil
+    from lookoncetohear_tpu_torch import eval_check, ts_hear_test
+    from lookoncetohear_tpu_torch import utils as port_utils
+    from lookoncetohear_tpu_torch.data import audio_io
+    from lookoncetohear_tpu_torch.data.loader import collate
+    from lookoncetohear_tpu_torch.data.prep import dvector_embeddings as dv
+    from lookoncetohear_tpu_torch.data.prep.synth_corpus import (BASE,
+                                                                 SPLITS, SR,
+                                                                 voice)
+    from lookoncetohear_tpu_torch.ops import bilstm_scan as scan_ops
+    from lookoncetohear_tpu_torch.ops.bilstm_scan import (
+        bilstm_scan_cuda, bilstm_scan_reference)
+    from lookoncetohear_tpu_torch.ops.lstm import bidir_scan_inputs
+    from lookoncetohear_tpu_torch.timing import device_ms, wall_ms
+    from lookoncetohear_tpu_torch.train.trainer import (Trainer, build_task,
+                                                        to_device)
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    base = os.path.join(root, "dvector")
+    scaper = os.path.join(root, BASE, "librispeech_scaper_fmt")
+    # the CLI's root: the corpus's splits and DV_SPLIT
+    src = os.path.join(base, "scaper_fmt")
+    os.makedirs(os.path.join(src, DV_SPLIT, DV_SPEAKER))
+    for split in SPLITS:
+        os.symlink(os.path.join(scaper, split), os.path.join(src, split))
+    # (split, speaker, file) of an utterance of each length
+    by_len = {secs: (DV_SPLIT, DV_SPEAKER, f"{DV_SPEAKER}-0-{u}.wav")
+              for u, secs in enumerate(DV_SECONDS)}
+    for u, (secs, rel) in enumerate(by_len.items()):
+        audio_io.write_wav(os.path.join(src, *rel),
+                           voice(110 + 9 * u, 3.5, int(secs * SR)), SR)
+    utts = [(split, spk, f) for split in sorted(os.listdir(src))
+            for spk in sorted(os.listdir(os.path.join(src, split)))
+            for f in sorted(os.listdir(os.path.join(src, split, spk)))]
+    by_len[CORPUS_SECONDS] = next(u for u in utts if u[0] in SPLITS)
+    longest = max(DV_SECONDS)
+    audio_s = ((len(utts) - len(DV_SECONDS)) * CORPUS_SECONDS
+               + sum(DV_SECONDS))
+
+    # the two checkpoints: the committed npz under the trainer's name, and
+    # a reference-format Lightning file (keys under model.)
+    runs = {"npz": os.path.join(base, "run_npz"),
+            "reference": os.path.join(base, "run_reference")}
+    for d in runs.values():
+        os.makedirs(d)
+    shutil.copy(EMBED_CKPT, os.path.join(runs["npz"], "best.ckpt"))
+    ref = reference_embed(np.random.default_rng(18))
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in ref.items()},
+                "epoch": 0}, os.path.join(runs["reference"], "best.ckpt"))
+
+    def cli(which, root_dir, out, device=None):
+        return ["--backend", "embednet", "--embednet_config", EMBED_5K,
+                "--embednet_run_dir", runs[which], "--root_dir", root_dir,
+                "--output_dir", out] + (["--device", device] if device else [])
+
+    # the CPU's runs of the CLI, started first: each on its own root of
+    # links to the utterances of DV_CPU
+    env = dict(os.environ, OMP_NUM_THREADS=str(DV_CPU_THREADS),
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    procs, done, cpu_s = {}, {}, {}
+    pool = ThreadPoolExecutor(len(DV_CPU))
+
+    def finish(pr):
+        """The process's output and the time it ended."""
+        return pr.communicate()[0], time.perf_counter()
+    try:
+        t_cpu = time.perf_counter()
+        for which, lens in DV_CPU.items():
+            sub = os.path.join(base, f"cpu_src_{which}")
+            for secs in lens:
+                split, spk, name = by_len[secs]
+                os.makedirs(os.path.join(sub, split, spk), exist_ok=True)
+                os.symlink(os.path.join(src, split, spk, name),
+                           os.path.join(sub, split, spk, name))
+            procs[which] = subprocess.Popen(
+                [sys.executable, "-m",
+                 "lookoncetohear_tpu_torch.data.prep.dvector_embeddings",
+                 *cli(which, sub, os.path.join(base, f"cpu_{which}"), "cpu")],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+            done[which] = pool.submit(finish, procs[which])
+
+        # the CLI on the card over every utterance, from each checkpoint
+        card, secs_cli = {}, {}
+        for which in runs:
+            out = card[which] = os.path.join(base, f"card_{which}")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dv.main(cli(which, src, out))
+            torch.cuda.synchronize()
+            secs_cli[which] = time.perf_counter() - t0
+            expect_counts(read_counts(), {"bilstm_scan": 6 * len(utts)},
+                          f"d-vector CLI ({which})")
+            for split, spk, f in utts:
+                v = np.load(os.path.join(out, split, f"{spk}.npz"))[f]
+                pt = torch.load(os.path.join(out, split, f"{spk}.pt"),
+                                weights_only=False)[f]
+                if not (v.shape == (256,) and v.dtype == np.float32
+                        and np.isfinite(v).all() and np.array_equal(pt, v)):
+                    raise AssertionError(f"{which}: {split}/{spk}/{f}: "
+                                         f"{v.shape} {v.dtype}")
+        log(f"  CLI on the card, {len(utts)} utterances ({audio_s:.0f} s of "
+            f"audio: {len(utts) - len(DV_SECONDS)} of {CORPUS_SECONDS:g} s, "
+            "and "
+            f"{', '.join(f'{s:g}' for s in DV_SECONDS)} s): "
+            + "; ".join(f"from {w} {secs_cli[w]:.2f} s, "
+                        f"{len(utts) / secs_cli[w]:.1f} utterances/s, "
+                        f"{secs_cli[w] * 1e3 / audio_s:.2f} ms per second of "
+                        "audio" for w in runs)
+            + f" (call to synchronize: the model's load, file reads and "
+            f"copies included); launches: bilstm_scan 6 an utterance, no "
+            f"other kernel [{smi}]")
+
+        # EmbedNet alone on the card: its time, the longest utterance
+        # through the plain scans, and that utterance's six scans
+        def enrollment(u):
+            a, file_sr = audio_io.read_audio(os.path.join(src, *u))
+            a = audio_io.resample(a.mean(0), file_sr, SR)
+            return torch.from_numpy(np.stack([a, a])[None]).to(dev)
+        x = enrollment(by_len[longest])
+        per_s, errs_plain = {}, {}
+        with port_utils.full_float32():
+            for which in ("reference", "npz"):
+                model = ts_hear_test.load_model(port_utils.Params(EMBED_5K),
+                                                runs[which], None, dev)
+                scan_ops.bilstm_scan_cuda = bilstm_scan_reference
+                try:
+                    want = model(x)[0].cpu().numpy()
+                finally:
+                    scan_ops.bilstm_scan_cuda = bilstm_scan_cuda
+                split, spk, name = by_len[longest]
+                got = np.load(os.path.join(card[which], split,
+                                           f"{spk}.npz"))[name]
+                peak = float(np.abs(want).max())
+                errs_plain[which] = float(np.abs(got - want).max()) / peak
+                if not (peak > 0 and errs_plain[which] <= TOL_ENROLL):
+                    raise AssertionError(
+                        f"{which}, {longest:g} s: the CLI's d-vector vs "
+                        f"EmbedNet on the plain scans {errs_plain[which]} of "
+                        "the peak")
+            # the committed checkpoint's model from here on
+            for secs, xs in ((CORPUS_SECONDS,
+                              enrollment(by_len[CORPUS_SECONDS])),
+                             (longest, x)):
+                model(xs)
+                per_s[secs] = wall_ms(lambda i: model(xs), 3) / secs
+            seen = []
+            hooks = [m.register_forward_hook(
+                         lambda mod, args, out: seen.append((mod, args[0])))
+                     for blk in model.net.trunk.blocks
+                     for m in (blk.intra_rnn, blk.inter_rnn)]
+            model(x)
+            for h in hooks:
+                h.remove()
+        log(f"  the {longest:g} s utterance on the card, the CLI's d-vector "
+            "against EmbedNet with every scan on B2's plain version (on the "
+            "card), max|kernel - plain| / peak: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs_plain.items())
+            + f" (tolerance {TOL_ENROLL})")
+        errs, rows = [], {}
+        lstm = torch.nn.LSTM(64, 64, batch_first=True,
+                             bidirectional=True).to(dev)
+        for i, (mod, a) in enumerate(seen):
+            what = f"block {i // 2} {('intra', 'inter')[i % 2]}"
+            xp, w_hh = (t.contiguous() for t in bidir_scan_inputs(
+                mod.params(), mod.params("_l0_reverse"), a))
+            t_, _, bb, g4 = xp.shape
+            h = g4 // 4
+            got = bilstm_scan_cuda(xp, w_hh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = bilstm_scan_reference(xp, w_hh)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            tol = TOL_LSTM if t_ <= 97 else TOL_LSTM_LONG
+            peak = plain[1].abs().max().item()
+            e_ys = (got[0] - plain[0]).abs().max().item()
+            e_c = (got[1] - plain[1]).abs().max().item()
+            msg = (f"  B2 at the {longest:g} s utterance, {what}, xp {list(xp.shape)}: "
+                   f"max|kernel - plain| ys {e_ys:.3e}, c_t {e_c:.3e} "
+                   f"(tolerance {tol}, c_t x max(1, peak |c| {peak:.3g}))")
+            if i < 2:
+                exact = bilstm_scan_reference(xp, w_hh, torch.float64)
+                msg += "; from float64: kernel ys {:.3e} c_t {:.3e}, plain " \
+                    "ys {:.3e} c_t {:.3e}".format(*(
+                        (v[j].double() - exact[j]).abs().max().item()
+                        for v in (got, plain) for j in (0, 1)))
+            log(msg)
+            if not (e_ys <= tol and e_c <= tol * max(1.0, peak)):
+                raise AssertionError(f"bilstm_scan differs at {what}: ys "
+                                     f"{e_ys}, c_t {e_c}")
+            errs.append(max(e_ys, e_c))
+            if i >= 2:
+                continue
+            for _ in range(3):
+                bilstm_scan_cuda(xp, w_hh)
+            k_ms = device_ms(lambda i: bilstm_scan_cuda(xp, w_hh), 20)
+            x_in = torch.randn((bb, t_, 64), device=dev)
+            for _ in range(3):
+                lstm(x_in)
+            l_ms = device_ms(lambda i: lstm(x_in), 10)
+            nbytes = 4 * (xp.numel() + w_hh.numel() + t_ * 2 * bb * h
+                          + 2 * bb * h)
+            flops = t_ * 2 * bb * (2 * h * 4 * h + 4 * h)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+            rows[("intra", "inter")[i]] = row = dict(
+                shape=list(xp.shape), ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=errs[-1])
+            log(f"  B2 {list(xp.shape)}: kernel {k_ms * 1e3:.1f} us "
+                f"({k_ms * 1e3 / t_:.3f} us a step), bound "
+                f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP f32; kernel "
+                f"{k_ms / row['bound_ms']:.1f}x), plain {p_ms * 1e3:.1f} us, "
+                f"cuDNN nn.LSTM(64, 64, bidirectional) {l_ms * 1e3:.1f} us "
+                f"[{smi}]")
+        log(f"  EmbedNet alone, call to synchronize (median of 3): "
+            + ", ".join(f"{v:.2f} ms per second of audio at {k:g} s"
+                        for k, v in per_s.items()) + f" [{smi}]")
+
+        # one training step of configs/tsh.json on the written d-vectors
+        _, hp = ref_config("tsh")
+        args = dict(hp.train_data_args, embed_dir=os.path.join(
+            card["npz"], "train-clean-360"))
+        ds = port_utils.import_attr(hp.train_dataset)(**args)
+        items = [ds[i] for i in range(hp.batch_size)]
+        for inputs, targets in items:
+            name = os.path.basename(inputs["enrollments_clean_path"][0])
+            want = np.load(os.path.join(args["embed_dir"],
+                                        name.split("-")[0] + ".npz"))[name]
+            if not np.array_equal(targets["embedding_gt"][0], want):
+                raise AssertionError(f"embedding_gt of {name} is not the "
+                                     "CLI's d-vector")
+        task = build_task(hp)
+        with tempfile.TemporaryDirectory(prefix="port_dvec_") as tmp_run, \
+                port_utils.full_float32(), torch.enable_grad():
+            tr = Trainer(task, tmp_run, epochs=1, device=dev)
+            batch = to_device(task.device_batch(collate(items), train=True),
+                              dev)
+            reset_counts()
+            loss = tr.train_step(batch, 0)["loss"].item()
+            counts = read_counts()
+        expect_counts(counts, {"bilstm_scan_fwd_train": 6,
+                               "bilstm_scan_bwd": 6}, "tsh.json step")
+        if not np.isfinite(loss):
+            raise AssertionError(f"tsh.json step on the d-vectors: {loss}")
+        log(f"  configs/tsh.json, one train_step at {len(items)} x 5 s on the "
+            f"CLI's d-vectors: loss {loss:.4f}; every embedding_gt is the "
+            f"CLI's d-vector of its enrollment utterance; launches 6 + 6")
+
+        # the eval from a reference-format checkpoint, card against CPU
+        with open(os.path.join(ROOT, "configs", "tsh.json")) as f:
+            cfg = json.load(f)
+        cfg["test_data_args"] = dict(hp.test_data_args, embed_dir=os.path.join(
+            card["npz"], "test-clean"), jams_dir=os.path.join(base, "jams"))
+        os.makedirs(cfg["test_data_args"]["jams_dir"])
+        for d in sorted(os.listdir(hp.test_data_args["jams_dir"]))[
+                :DV_EVAL_SCENES]:
+            os.symlink(os.path.join(hp.test_data_args["jams_dir"], d),
+                       os.path.join(cfg["test_data_args"]["jams_dir"], d))
+        eval_cfg = os.path.join(base, "tsh_eval.json")
+        with open(eval_cfg, "w") as f:
+            json.dump(cfg, f)
+        sd = reference_tse(np.random.default_rng(19))
+        csvs, eval_s = [], {}
+        for d in ("cuda", "cpu"):
+            run_dir = os.path.join(base, f"eval_{d}")
+            os.makedirs(run_dir)
+            torch.save({"state_dict": {k: torch.from_numpy(v)
+                                       for k, v in sd.items()}},
+                       os.path.join(run_dir, "best.ckpt"))
+            reset_counts()
+            t0 = time.perf_counter()
+            ts_hear_test.run(ts_hear_test.parse_args(
+                ["--config", eval_cfg, "--run_dir", run_dir, "--enroll_config",
+                 "", "--enroll_run_dir", "", "--num_workers", "0",
+                 "--device", d]))
+            eval_s[d] = time.perf_counter() - t0
+            if d == "cuda":
+                expect_counts(read_counts(), {"bilstm_scan": 3,
+                                              "bilstm_scan_fwd_train": 3},
+                              "eval from a reference checkpoint")
+            csvs.append(eval_check.read_csv(
+                os.path.join(run_dir, "results_test_clean.csv")))
+        tol = {"si_snr_i": 1e-3, "output_sisnr": 1e-3, "embedding_sim": 1e-5}
+        cmp = eval_check.compare(*csvs, tol=tol)
+        if cmp["rows"] != DV_EVAL_SCENES or cmp["failures"]:
+            raise AssertionError(eval_check.report(cmp))
+        log(f"  ts_hear_test from a reference-format Lightning best.ckpt "
+            f"({len(sd)} tensors, converted on load), oracle, "
+            f"{DV_EVAL_SCENES} test scenes: card {eval_s['cuda']:.1f} s, CPU "
+            f"{eval_s['cpu']:.1f} s; every CSV row within {tol}; largest "
+            f"deviations {cmp['max_dev']}")
+
+        # --embed_from_wav without resemblyzer
+        if importlib.util.find_spec("resemblyzer") is None:
+            run_dir = os.path.join(base, "eval_embed_from_wav")
+            t0 = time.perf_counter()
+            try:
+                ts_hear_test.run(ts_hear_test.parse_args(
+                    ["--config", eval_cfg, "--run_dir", run_dir,
+                     "--enroll_config", EMBED_5K, "--enroll_run_dir",
+                     runs["npz"], "--num_workers", "0", "--embed_from_wav"]))
+            except ImportError as e:
+                if "resemblyzer" not in str(e) or os.path.exists(run_dir):
+                    raise
+                log(f"  --embed_from_wav: ImportError after "
+                    f"{time.perf_counter() - t0:.3f} s, before any work: {e}")
+            else:
+                raise AssertionError("--embed_from_wav ran without "
+                                     "resemblyzer")
+        else:
+            log("  --embed_from_wav: resemblyzer is installed on this host; "
+                "its refusal is not checked")
+
+        # the CPU's runs: every embedding they made, against the card's
+        errs_cpu = {}
+        for which, pr in procs.items():
+            # raise before the watchdog ends the script, so that the
+            # finally below stops the process
+            out, t_end = done[which].result(timeout=max(
+                1.0, DV_LIMIT - 5 - (time.perf_counter() - t_start)))
+            cpu_s[which] = t_end - t_cpu
+            if pr.returncode:
+                raise AssertionError(f"CPU CLI ({which}): rc "
+                                     f"{pr.returncode}: {out}")
+            cpu_dir = os.path.join(base, f"cpu_{which}")
+            for secs in DV_CPU[which]:
+                split, spk, name = by_len[secs]
+                want = np.load(os.path.join(cpu_dir, split, f"{spk}.npz"))[name]
+                got = np.load(os.path.join(card[which], split,
+                                           f"{spk}.npz"))[name]
+                peak = float(np.abs(want).max())
+                err = float(np.abs(got - want).max())
+                errs_cpu[f"{which} {secs:g} s"] = err / peak
+                if not (peak > 0 and err <= TOL_ENROLL * peak):
+                    raise AssertionError(f"{which}, {secs:g} s: card vs CPU "
+                                         f"{err} (peak {peak})")
+        log("  card vs the CPU's run of the CLI, max|card - CPU| / peak: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs_cpu.items())
+            + f" (tolerance {TOL_ENROLL}); the CPU's runs, "
+            f"{DV_CPU_THREADS} threads each, beside the card's work: "
+            + ", ".join(f"{w} {sum(DV_CPU[w]):g} s of audio in "
+                        f"{cpu_s[w]:.1f} s" for w in DV_CPU))
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+        pool.shutdown()
+    res["dvector"] = dict(
+        utterances=len(utts), audio_s=audio_s, cli_s=secs_cli,
+        ms_per_audio_s=per_s, cpu_rel_err=errs_cpu, cpu_cli_s=cpu_s,
+        plain_scans_rel_err=errs_plain, eval_s=eval_s,
+        bilstm_scan_longest=rows)
+
+
+def corpus_phases(torch, smi, res, reset_counts, read_counts, expect_counts,
                   launch_counts, step_ms):
     """The reference configs' training path on a LibriSpeech-format
     corpus made here (the corpora are not in the repository):
@@ -536,6 +975,10 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
         CATT room's BRIRs (wav: nothing needs h5py or soundfile); the
         port's generate_jams CLI, run from that directory, writes each
         split's scene specs (one process a split, all at once);
+      * "path: d-vector precompute" (`dvector_phase`): the port's
+        dvector_embeddings CLI over that corpus and a split of longer
+        utterances, on the card against the CPU, then a training step and
+        the eval on the d-vectors it wrote;
       * "path: trainer CLI, reference configs": configs/tsh.json and
         configs/embed.json with only the data directories re-pointed and
         hrtf_type CATTRIR (MultiCh reads SOFA, which needs h5py), one
@@ -607,6 +1050,10 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
         with open(path, "w") as f:
             json.dump(cfg, f)
         return path, port_utils.Params(path)
+
+    phase("path: d-vector precompute", DV_LIMIT, lambda: dvector_phase(
+        torch, smi, root, ref_config, res, reset_counts, read_counts,
+        expect_counts))
 
     cli_secs: dict = {}
 
@@ -689,7 +1136,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             log(f"    best.ckpt: {len(got)} tensors, keys and shapes of "
                 f"{ckpt.split('/')[-1]}, loads strictly; pl_logger: "
                 + ", ".join(f"{t} ({r} rows)" for t, r in zip(tables, rows)))
-    phase("path: trainer CLI, reference configs", 85, reference_cli,
+    phase("path: trainer CLI, reference configs", 80, reference_cli,
           grad=True)
 
     def render_rate():
@@ -733,7 +1180,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             "items consumes "
             + ", ".join(f"{v:.1f} / s ({k})" for k, v in used.items())
             + f" [{smi}]")
-    phase("data: render rate", 55, render_rate)
+    phase("data: render rate", 50, render_rate)
 
     def loader_rate(ds, bs, workers):
         """Items a second through `batches` with `workers` workers,
@@ -861,7 +1308,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             f"{cli_secs['TSETask, --prerender (reads)']:.1f} s reading it, "
             f"{cli_secs['TSETask']:.1f} s uncached (\"path: trainer CLI, "
             f"reference configs\") [{smi}]")
-    phase("path: trainer CLI, --prerender", 90, prerender_cli, grad=True)
+    phase("path: trainer CLI, --prerender", 84, prerender_cli, grad=True)
 
     def moving_sources():
         """The native renderer on the card's host: the known-delay case
@@ -1117,7 +1564,7 @@ def corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
             f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, reserved "
             f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB of the "
             f"card's {total / gib:.2f} GiB [{smi}]")
-    phase("path: SeparationTask", 125, separation, grad=True)
+    phase("path: SeparationTask", 115, separation, grad=True)
 
     def losses_card():
         g = np.random.default_rng(5)
@@ -1536,8 +1983,10 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
         out.update(graph.benchmark_device(n_short=50, n_long=250,
                                           repeats=3))
         reset_counts()
-        out.update(profile_steps(graph, x[:10], torch,
-                                 {"bilstm_scan_h128": 6}))
+        out.update(profile_steps(
+            graph, x[:10], torch, {"bilstm_scan_h128": 6},
+            replays="the graph's every step matched the eager engine's, "
+                    "6 B2 launches a step, bit for bit"))
         expect_counts(read_counts(), {}, f"default Net {label} replays")
         res["default_net"][label] = out
         log(f"  default Net, {DEFAULT_STREAMS} streams, {label}: CUDA graph "
@@ -2865,7 +3314,7 @@ def main() -> int:
             f"{gpu_cost['bytes_accessed'] / 1e6:.2f} MB in and out; trace: "
             f"{n_events} events in 3 eager float32-ring steps, the port's "
             f"kernels {ran}")
-    phase("profiling", 25, profiling_phase)
+    phase("profiling", 23, profiling_phase)
 
     # ---- 7. times (CUDA events) ----------------------------------------
     def engine_times(label, kernel, absent=()):
@@ -2906,8 +3355,10 @@ def main() -> int:
             f"best, RTF {out['rtf']:.4f}; benchmark p50 "
             f"{out['p50_ms_incl_transport']:.3f} ms incl. transport [{smi}]")
         reset_counts()
-        out.update(profile_steps(eng, x[:10], torch,
-                                 {"bilstm_scan": 3, kernel: 3}, absent))
+        out.update(profile_steps(
+            eng, x[:10], torch, {"bilstm_scan": 3, kernel: 3}, absent,
+            replays=f"the graph's every step matched the eager engine's, "
+                    f"3 B2 and 3 {kernel} launches a step, bit for bit"))
         expect_counts(read_counts(), {}, f"{label} graph replays")
         return out
 
@@ -3096,7 +3547,7 @@ def main() -> int:
             f"{min(ev_ms):.2f}-{max(ev_ms):.2f}), "
             f"{np.median(walls):.2f} ms from call to synchronize, RTF "
             f"{fwd_ms / (FULL_SECONDS * 1e3):.4f} [{smi}]")
-    phase("times", 62, times)
+    phase("times", 55, times)
 
     # ---- 8. the two-stage eval and the serving-precision study ---------
     def eval_5k(mode, ref, enroll_args, per_batch):
@@ -3161,7 +3612,7 @@ def main() -> int:
              "runs/embed_r5_5k", "--enroll_ckpt", EMBED_CKPT],
             {"bilstm_scan": 3 + 6, "bilstm_scan_fwd_train": 3})
         return out
-    evals = phase("eval: two-stage, 5k test split", 37, eval_both)
+    evals = phase("eval: two-stage, 5k test split", 33, eval_both)
 
     def serving_precision():
         """`kv_quality.run`: the first EVAL_SCENES test scenes as as many
@@ -3196,7 +3647,7 @@ def main() -> int:
             f"(limit {KV_COST_DB} dB); {secs:.1f} s with the scenes' "
             f"rendering [{smi}]")
         return means
-    kv_means = phase("eval: serving precision, 64 streams", 17,
+    kv_means = phase("eval: serving precision, 64 streams", 16,
                      serving_precision)
 
     # ---- 9. training ------------------------------------------------------
@@ -3353,7 +3804,7 @@ def main() -> int:
                 f"the CPU's float32 at worst {cpu_to64:.3e}; launches: "
                 + ", ".join(f"{k} {counts[k]}" for k in per_step)
                 + ", no other kernel of the port")
-    phase("path: train step GPU vs CPU", 60, train_step_check, grad=True)
+    phase("path: train step GPU vs CPU", 50, train_step_check, grad=True)
 
     def trainer_cli():
         """The port's trainer CLI on each committed training config at
@@ -3417,7 +3868,7 @@ def main() -> int:
                     f"{ckpt.split('/')[-1]}, loads strictly; launches: "
                     + ", ".join(f"{k} {v}" for k, v in want.items()))
     cli_runs: dict = {}
-    phase("path: trainer CLI", 70, trainer_cli, grad=True)
+    phase("path: trainer CLI", 65, trainer_cli, grad=True)
 
     def ddp_one():
         """`parallel.distributed.maybe_initialize` joins an NCCL group of
@@ -3593,7 +4044,7 @@ def main() -> int:
             f"unwrapped ({first_plain:.1f} ms first), losses "
             f"{l_ddp[0]:.4f} -> {l_ddp[-1]:.4f}, within {d_loss:.2e} of "
             f"the unwrapped run's [{smi}]")
-    phase("path: DDP, world size 1", 80, ddp_one, grad=True)
+    phase("path: DDP, world size 1", 75, ddp_one, grad=True)
 
     def step_with_remat(tr, batch, steps=3):
         """ms a step (median after the first) and peak GB of the same
@@ -3722,16 +4173,16 @@ def main() -> int:
                     + ("forward" if kname.endswith("train") else
                        "forward + backward")
                     + f" {l_ms * 1e3:.1f} us [{smi}]")
-    phase("times: training", 33, train_times, grad=True)
+    phase("times: training", 30, train_times, grad=True)
 
-    corpus_phases(torch, smi, reset_counts, read_counts, expect_counts,
+    corpus_phases(torch, smi, res, reset_counts, read_counts, expect_counts,
                   launch_counts,
                   {name: res[f"train_{name}"]["ms"] for name, *_ in tasks})
 
     phase("default Net (H=128, no attention)", 40,
           lambda: default_net_phase(torch, smi, res, launch_counts,
                                     reset_counts, read_counts, expect_counts))
-    phase("default Net training (H=128)", 46,
+    phase("default Net training (H=128)", 41,
           lambda: default_net_training_phase(
               torch, smi, res, launch_counts, reset_counts, read_counts,
               expect_counts), grad=True)
@@ -3843,6 +4294,7 @@ def main() -> int:
     log(f"engine, CUDA graph: {json.dumps(res['graph'])}")
     log(f"EmbedNet: {json.dumps(res['enroll'])}")
     log(f"default Net: {json.dumps(res['default_net'])}")
+    log(f"d-vector precompute: {json.dumps(res['dvector'])}")
     for k in [*(f"bilstm_scan_h128_{s}" for s in H128_SCANS),
               "bilstm_scan_h128_eval",
               *(f"bilstm_scan_fwd_train_h128_{s}" for s in H128_TRAIN),

@@ -44,7 +44,9 @@ SEED = 0
 EARLY_S = 0.05                # a BRIR's length beyond its room's RT60
 
 
-def _voice(f0: float, rate: float, n: int) -> np.ndarray:
+def voice(f0: float, rate: float, n: int) -> np.ndarray:
+    """A synthetic voice: three harmonics of f0 under a syllable-rate
+    envelope, n samples at SR."""
     t = np.arange(n) / SR
     x = sum(np.sin(2 * np.pi * h * f0 * t) / h for h in (1, 2, 3))
     env = 0.55 + 0.45 * np.sin(2 * np.pi * rate * t)
@@ -93,7 +95,7 @@ def write_corpus(root: str, n_speakers: int = 8, n_utts: int = 3,
             for u in range(n_utts):
                 name = f"{spk}-0-{u}.wav"
                 write_wav(os.path.join(fg, spk, name),
-                          _voice(90 + 23 * k + 4 * u, 3 + 0.7 * k, n), SR)
+                          voice(90 + 23 * k + 4 * u, 3 + 0.7 * k, n), SR)
                 embs[name] = rng.standard_normal(EMBED_DIM).astype(
                     np.float32)
             np.savez(os.path.join(emb_dir, f"{spk}.npz"), **embs)

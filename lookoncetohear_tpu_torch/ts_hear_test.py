@@ -11,13 +11,16 @@ metadata gathered into a CSV (counterpart of
         --enroll_ckpt checkpoints/embed_r5_5k_best.npz [--device cpu]
 
 `--enroll_config '' --enroll_run_dir ''` runs the oracle mode (the
-separator gets each scene's ground-truth d-vector). Runs on the GPU
-unless `--device cpu`, in full float32 (TF32 off). Prints the mean
-SI-SNRi and mean embedding cosine similarity and writes
-`{run_dir}/results_{dset}_{enroll_cfg}.csv`, never over an existing
-file. Checkpoints are the `p//` npz exports (`weights.load_checkpoint`,
-strict); the model is built from the config's `pl_module_args.model`
-and `model_params`.
+separator gets each scene's ground-truth d-vector). `--embed_from_wav`
+re-embeds the enrollment net's output audio with resemblyzer's
+`VoiceEncoder` (the optional `resemblyzer` package and its pretrained
+weights). Runs on the GPU unless `--device cpu`, in full float32 (TF32
+off). Prints the mean SI-SNRi and mean embedding cosine similarity and
+writes `{run_dir}/results_{dset}_{enroll_cfg}.csv`, never over an
+existing file. A checkpoint is a `p//` npz export
+(`weights.load_checkpoint`) or a reference PyTorch/Lightning file
+(`convert`), told apart by content and loaded strictly; the model is
+built from the config's `pl_module_args.model` and `model_params`.
 """
 
 from __future__ import annotations
@@ -27,38 +30,76 @@ import csv
 import math
 import os
 import time
+import zipfile
 
 import numpy as np
 import torch
 
-from lookoncetohear_tpu_torch import resolve_device, utils
+from lookoncetohear_tpu_torch import convert, resolve_device, utils
 from lookoncetohear_tpu_torch.data.loader import batches, stop_workers
 from lookoncetohear_tpu_torch.losses import cosine_similarity, si_snr
 from lookoncetohear_tpu_torch.metrics.binaural import ild_diff, itd_diff
-from lookoncetohear_tpu_torch.weights import load_checkpoint
+from lookoncetohear_tpu_torch.weights import PARAM_PREFIX, load_checkpoint
 
-EMBED_FROM_WAV_REFUSED = (
-    "--embed_from_wav re-embeds the enrollment net's output with "
-    "resemblyzer's pretrained VoiceEncoder, whose weights are not in the "
-    "repository; the port does not run it")
+NO_CHECKPOINT = (
+    "{ckpt}: not a checkpoint file. The port loads `p//` npz checkpoints "
+    "(the committed checkpoints/*.npz, the port trainer's .ckpt files) "
+    "and reference PyTorch/Lightning files; orbax run dirs are not read, "
+    "and a missing checkpoint is not replaced by a fresh init")
+
+
+def is_npz_checkpoint(path: str) -> bool:
+    """Whether `path` is a `p//` npz checkpoint. Both it and a PyTorch
+    checkpoint are zip archives, and the port's trainer writes npz under
+    the name `best.ckpt`, so the content decides: an npz whose keys
+    start with `p//`."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with np.load(path, allow_pickle=False) as z:
+        return any(k.startswith(PARAM_PREFIX) for k in z.files)
 
 
 def load_model(config, run_dir: str, ckpt: str | None, device):
     """The config's model on `device`, its weights loaded strictly from
-    a `p//` npz checkpoint: `ckpt`, else `{run_dir}/best.ckpt` (the
-    port's trainer writes npz files under that name). Any other
-    checkpoint format is refused."""
+    `ckpt`, else `{run_dir}/best.ckpt`: a `p//` npz checkpoint, or a
+    reference PyTorch/Lightning checkpoint converted by `convert`. A
+    directory (orbax) or a missing file is refused."""
+    ckpt = ckpt or os.path.join(run_dir, "best.ckpt")
+    if not os.path.isfile(ckpt):
+        raise ValueError(NO_CHECKPOINT.format(ckpt=ckpt))
     module_args = config.pl_module_args
     model = utils.import_attr(module_args["model"])(
         **module_args["model_params"], device=device)
-    ckpt = ckpt or os.path.join(run_dir, "best.ckpt")
-    if not os.path.isfile(ckpt):
-        raise ValueError(
-            f"{ckpt}: the port loads only `p//` npz checkpoints (the "
-            f"committed checkpoints/*.npz, the port trainer's .ckpt "
-            f"files); orbax run dirs are not read")
-    print(f"Loading (npz) {ckpt}")
-    return load_checkpoint(model, ckpt).eval()
+    if is_npz_checkpoint(ckpt):
+        print(f"Loading (npz) {ckpt}")
+        load_checkpoint(model, ckpt)
+    else:
+        print(f"Loading (torch) {ckpt}")
+        convert.load_reference(model, convert.load_torch_checkpoint(ckpt))
+    return model.eval()
+
+
+def resemblyzer_api():
+    """resemblyzer's (VoiceEncoder, preprocess_wav), imported when
+    called; an ImportError naming the package when it is absent."""
+    try:
+        from resemblyzer import VoiceEncoder, preprocess_wav
+    except ImportError as e:
+        raise ImportError(
+            "--embed_from_wav needs the optional resemblyzer package "
+            "(pretrained VoiceEncoder), which is not installed") from e
+    return VoiceEncoder, preprocess_wav
+
+
+def dvector_from_audio(x: torch.Tensor, sr: int, encoder,
+                       preprocess_wav) -> torch.Tensor:
+    """[B, S, N] audio -> [B, E] resemblyzer d-vectors on x's device,
+    one utterance a row (each row's mean over S)."""
+    embs = [encoder.embed_utterance(
+        preprocess_wav(x[i].cpu().numpy().mean(0), sr))
+        for i in range(x.shape[0])]
+    return torch.as_tensor(np.stack(embs), dtype=torch.float32,
+                           device=x.device)
 
 
 def _trim_duration(x: np.ndarray, sr: int, top_db: float = 30.0,
@@ -161,14 +202,14 @@ def run(args) -> list[dict]:
         args.run_dir, f"results_{args.dset}_{enroll_cfg_name}.csv")
     if os.path.exists(results_file):
         raise FileExistsError(f"{results_file} already exists")
-    if getattr(args, "embed_from_wav", False):
-        raise ValueError(EMBED_FROM_WAV_REFUSED)
+    resemblyzer = resemblyzer_api() \
+        if getattr(args, "embed_from_wav", False) else None
     device = resolve_device(getattr(args, "device", None))
     with utils.full_float32():
-        return _run(args, device, results_file)
+        return _run(args, device, results_file, resemblyzer)
 
 
-def _run(args, device, results_file: str) -> list[dict]:
+def _run(args, device, results_file: str, resemblyzer) -> list[dict]:
     config = utils.Params(args.config)
     model = load_model(config, args.run_dir, getattr(args, "ckpt", None),
                        device)
@@ -177,6 +218,11 @@ def _run(args, device, results_file: str) -> list[dict]:
         enroll_model = load_model(
             utils.Params(args.enroll_config), args.enroll_run_dir,
             getattr(args, "enroll_ckpt", None), device)
+    encoder = None
+    if enroll_model is not None and resemblyzer is not None:
+        # re-embed the enrollment net's output audio with resemblyzer
+        voice_encoder, preprocess_wav = resemblyzer
+        encoder = voice_encoder(device=device)
 
     ds = utils.import_attr(getattr(config, f"{args.dset}_dataset"))(
         **getattr(config, f"{args.dset}_data_args"))
@@ -196,7 +242,11 @@ def _run(args, device, results_file: str) -> list[dict]:
         waited += time.perf_counter() - t_ready
         mixture = gpu(inputs["mixture"])
         gt_emb = gpu(targets["embedding_gt"])              # [B, 1, E]
-        if enroll_model is not None:
+        if encoder is not None:
+            sep = enroll_model(gpu(inputs["enrollments"][:, 0]))
+            embedding = dvector_from_audio(sep, sr, encoder,
+                                           preprocess_wav)[:, None]
+        elif enroll_model is not None:
             embedding = enroll_model(gpu(inputs["enrollments"][:, 0]))[:, None]
         else:
             embedding = gt_emb
@@ -257,15 +307,16 @@ def parse_args(argv=None):
     parser.add_argument("--enroll_run_dir", type=str,
                         default="runs/embed")
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="separator checkpoint, a `p//` .npz export "
-                             "(default: run_dir/best.ckpt, refused unless "
-                             "it is one)")
+                        help="separator checkpoint: a `p//` .npz export "
+                             "or a reference PyTorch/Lightning .ckpt "
+                             "(default: run_dir/best.ckpt)")
     parser.add_argument("--enroll_ckpt", type=str, default=None,
                         help="same, for the enrollment net")
     parser.add_argument("--num_workers", type=int, default=8)
     parser.add_argument("--embed_from_wav", action="store_true",
                         default=False,
-                        help="refused: " + EMBED_FROM_WAV_REFUSED)
+                        help="re-embed the enrollment net's output audio "
+                             "with resemblyzer (optional package)")
     parser.add_argument("--binaural", action="store_true",
                         default=False,
                         help="add ΔILD (dB) / ΔITD (µs) spatial-cue "

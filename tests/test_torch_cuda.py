@@ -16,6 +16,7 @@ int8 ring rtol/atol 2e-5; a bf16 q or ring atol 2e-2.
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -447,13 +448,15 @@ def test_eval_on_the_card_matches_the_cpu(dev, tmp_path, mode):
     assert res["rows"] == 4 and not res["failures"], eval_check.report(res)
 
 
-def test_eval_cli_refusals_on_the_card(dev, tmp_path):
-    """--embed_from_wav and checkpoints that are not p// npz files are
-    refused on the card too, before any work."""
+def test_eval_cli_refusals_on_the_card(dev, tmp_path, monkeypatch):
+    """--embed_from_wav without resemblyzer is an ImportError naming it,
+    and a missing checkpoint or an orbax directory is refused, on the card
+    too, before any work."""
     from lookoncetohear_tpu_torch import ts_hear_test
     args = _eval_args(tmp_path, "r", "oracle", "cuda")
+    monkeypatch.setitem(sys.modules, "resemblyzer", None)
     args.embed_from_wav = True
-    with pytest.raises(ValueError, match="resemblyzer"):
+    with pytest.raises(ImportError, match="resemblyzer"):
         ts_hear_test.run(args)
     args.embed_from_wav = False
     for ckpt in (str(tmp_path / "best.ckpt"), str(tmp_path)):

@@ -23,6 +23,8 @@ Tolerances and why:
 import argparse
 import json
 import os
+import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -338,13 +340,17 @@ def _hold(got_csv, want_rows, tol=DB_TOL):
     return res
 
 
-@pytest.mark.parametrize("mode", ["two-stage", "oracle-binaural"])
+@pytest.mark.parametrize("mode", ["two-stage", "oracle-binaural",
+                                  "reference-ckpt"])
 def test_tiny_eval_matches_the_jax_cli(tmp_path, mode):
-    """Both CLIs on the tiny configs from the same JAX-initialised npz
-    weights: the CSVs agree row by row."""
+    """Both CLIs on the tiny configs from the same weights: JAX-initialised
+    npz weights, or (reference-ckpt) a seeded reference Lightning
+    `best.ckpt` in each run dir, which both CLIs convert; the CSVs agree
+    row by row."""
     tsh = _write(tmp_path, TINY_TSE_CFG, "tsh.json")
-    extra = dict(ckpt=_jax_npz(tmp_path, TINY_TSE_CFG, "tsh.npz"),
-                 binaural=mode == "oracle-binaural")
+    extra = dict(binaural=mode == "oracle-binaural")
+    if mode != "reference-ckpt":
+        extra["ckpt"] = _jax_npz(tmp_path, TINY_TSE_CFG, "tsh.npz")
     enroll, name = (None, None), "results_test_clean.csv"
     if mode == "two-stage":
         enroll = (_write(tmp_path, TINY_EMBED_CFG, "embed.json"),
@@ -356,6 +362,8 @@ def test_tiny_eval_matches_the_jax_cli(tmp_path, mode):
                          (tcli, "port", {"device": "cpu"})):
         run_dir = str(tmp_path / sub)
         os.makedirs(run_dir)
+        if mode == "reference-ckpt":
+            _lightning_ckpt(os.path.join(run_dir, "best.ckpt"))
         cli.run(_args(tsh, run_dir, *enroll, **extra, **kw))
         csvs.append(os.path.join(run_dir, name))
     res = _hold(csvs[1], eval_check.read_csv(csvs[0]))
@@ -363,16 +371,38 @@ def test_tiny_eval_matches_the_jax_cli(tmp_path, mode):
     assert ("delta_itd_us" in res["max_dev"]) == extra["binaural"]
 
 
-def test_cli_refuses_what_the_port_does_not_run(tmp_path):
-    """--embed_from_wav, a checkpoint that is not a p// npz, and an
-    existing results file are refused before any work."""
+def _lightning_ckpt(path):
+    """A seeded state_dict in the reference streaming model's key layout
+    (tests/test_convert.py) at the tiny TSE config, as Lightning saves it."""
+    from test_convert import _fake_tse_state_dict
+    sd = {k: torch.from_numpy(v) for k, v in _fake_tse_state_dict().items()}
+    torch.save({"state_dict": sd, "epoch": 1}, path)
+
+
+def test_cli_refuses_what_the_port_does_not_run(tmp_path, monkeypatch):
+    """A missing checkpoint (the JAX CLI would evaluate a fresh init), an
+    orbax run directory and an existing results file are refused before
+    any work; --embed_from_wav without resemblyzer is an ImportError
+    naming it; a `p//` npz and a reference Lightning file load by content,
+    whatever their names."""
     tsh = _write(tmp_path, TINY_TSE_CFG, "tsh.json")
     run_dir = str(tmp_path)
-    with pytest.raises(ValueError, match="resemblyzer"):
+    monkeypatch.setitem(sys.modules, "resemblyzer", None)
+    with pytest.raises(ImportError, match="resemblyzer"):
         tcli.run(_args(tsh, run_dir, embed_from_wav=True, device="cpu"))
     for ckpt in (None, str(tmp_path / "best.ckpt"), str(tmp_path)):
         with pytest.raises(ValueError, match="npz"):
             tcli.run(_args(tsh, run_dir, ckpt=ckpt, device="cpu"))
+    npz = str(tmp_path / "model.ckpt")
+    shutil.copy(_jax_npz(tmp_path, TINY_TSE_CFG, "tsh.npz"), npz)
+    lightning = str(tmp_path / "epoch=1.npz")
+    _lightning_ckpt(lightning)
+    assert tcli.is_npz_checkpoint(npz)
+    assert not tcli.is_npz_checkpoint(lightning)
+    assert not tcli.is_npz_checkpoint(tsh)
+    cfg = tutils.Params(tsh)
+    for path in (npz, lightning):
+        tcli.load_model(cfg, run_dir, path, "cpu")
     open(tmp_path / "results_test_clean.csv", "w").close()
     with pytest.raises(FileExistsError):
         tcli.run(_args(tsh, run_dir, ckpt="x.npz", device="cpu"))

@@ -78,10 +78,12 @@ print("ok")
 
 # the modules that port the rest of the JAX package: the render-ahead
 # cache, moving sources, process groups, the rank's device, profiling,
-# the reference-checkpoint converter, the launcher and the demo
+# the reference-checkpoint converter, the launcher, the demo and the two
+# speaker-embedding precomputes
 NEW_MODULES = ["data.prep.prerender", "data.motion", "parallel.distributed",
                "parallel.mesh", "profiling", "convert", "launch",
-               "stream_demo"]
+               "stream_demo", "data.prep.dvector_embeddings",
+               "data.prep.nemo_embed"]
 
 
 def test_new_modules_run_with_jax_blocked(tmp_path):
@@ -175,3 +177,73 @@ def test_chip_smoke_without_a_card_fails():
     out = _smoke(ROOT)
     assert out.returncode != 0
     assert out.stdout == "" and "no CUDA device" in out.stderr
+
+
+def test_every_jax_module_has_its_port():
+    """Each module of the JAX package has a module of the same path in
+    the port, but for the two Pallas kernel files, whose kernels are
+    ported into lookoncetohear_tpu_torch/csrc/."""
+    def modules(pkg):
+        return {str(p.relative_to(ROOT / pkg))
+                for p in (ROOT / pkg).rglob("*.py")}
+    missing = modules("lookoncetohear_tpu") - modules(
+        "lookoncetohear_tpu_torch")
+    assert missing == {"ops/pallas_attention.py", "ops/pallas_lstm.py"}
+    assert sorted(p.name for p in (ROOT / "lookoncetohear_tpu_torch" /
+                                   "csrc").glob("*.cu")) == [
+        "attn_step.cu", "bilstm_scan.cu", "ring_int8_step.cu"]
+
+
+def test_dvector_cli_runs_with_jax_blocked(tmp_path):
+    """The d-vector precompute's embednet backend with JAX unimportable:
+    a tiny EmbedNet saved as the trainer saves it (npz under the name
+    best.ckpt), two utterances, on the CPU; each embedding is the net's
+    output on the file's mono audio duplicated to both ears."""
+    code = f"""
+import sys
+for m in ("jax", "jaxlib", "flax", "optax", "lookoncetohear_tpu"):
+    sys.modules[m] = None
+import json, os
+import numpy as np, torch
+from lookoncetohear_tpu_torch.data.audio_io import write_wav
+from lookoncetohear_tpu_torch.data.prep import dvector_embeddings as dv
+from lookoncetohear_tpu_torch.models.net import EmbedNet
+from lookoncetohear_tpu_torch.weights import save_npz
+tmp = {str(tmp_path)!r}
+mp = dict(embed_dim=32, num_ch=2, n_fft=64, stride=32, num_blocks=1)
+cfg = os.path.join(tmp, "embed.json")
+with open(cfg, "w") as f:
+    json.dump({{"pl_module_args": {{
+        "model": "lookoncetohear_tpu.models.net.EmbedNet",
+        "model_params": mp}}}}, f)
+torch.manual_seed(0)
+net = EmbedNet(**mp, device="cpu").eval()
+os.makedirs(os.path.join(tmp, "run"))
+save_npz(os.path.join(tmp, "run", "best.ckpt"), net)
+spk = os.path.join(tmp, "src", "test-clean", "61")
+os.makedirs(spk)
+g = np.random.default_rng(0)
+wavs = {{"61-0-0.wav": 0.3 * g.standard_normal(4000),
+         "61-0-1.wav": 0.3 * g.standard_normal((2, 6000))}}
+for name, a in wavs.items():
+    write_wav(os.path.join(spk, name), a.astype(np.float32), 16000)
+dv.main(["--backend", "embednet", "--embednet_config", cfg,
+         "--embednet_run_dir", os.path.join(tmp, "run"), "--root_dir",
+         os.path.join(tmp, "src"), "--output_dir", os.path.join(tmp, "out"),
+         "--device", "cpu"])
+got = np.load(os.path.join(tmp, "out", "test-clean", "61.npz"))
+assert sorted(got.files) == sorted(wavs)
+for name, a in wavs.items():
+    mono = np.atleast_2d(a.astype(np.float32)).mean(0)
+    with torch.no_grad():
+        want = net(torch.from_numpy(np.stack([mono, mono])[None]))[0]
+    np.testing.assert_allclose(got[name], want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+assert not any(m.startswith(("jax", "flax")) for m in sys.modules
+               if sys.modules[m] is not None)
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
