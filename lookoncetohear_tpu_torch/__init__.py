@@ -2,9 +2,9 @@
 enrollment net and the streaming separator.
 
 Mirrors the layout of the JAX package `lookoncetohear_tpu`: each module
-here has a counterpart of the same path there (`entry.py` and
-`bench.py` stand for the repo root's `__graft_entry__.py` and
-`bench.py`). The port imports `torch`, `numpy` and the standard library
+here has a counterpart of the same path there (`entry.py` stands for
+the repo root's `__graft_entry__.py`; the port's benchmark is
+`benchmark/`). The port imports `torch`, `numpy` and the standard library
 only. The Pallas kernels are replaced by CUDA kernels for Hopper
 (`csrc/`), built with one `nvcc` call at first use (`_build.py`).
 

@@ -12,7 +12,7 @@ ground-truth d-vector, at three serving precisions:
 
   f32 / f32 K/V    full precision
   bf16 / bf16 K/V  bf16 params, activations and ring
-  bf16 / int8 K/V  the serving configuration (`bench.py`)
+  bf16 / int8 K/V  the serving configuration (`flagship.serve64`)
 
 and prints the mean SI-SNRi of each beside the JAX package's figures
 from a TPU (docs/perf_r5/kv_quality_r5.log). The engine's output lags

@@ -32,6 +32,11 @@ default: on an 80 GB H100 keeping the activations is the faster
 training step (PERF.md). `remat=True` checkpoints every block of a T>1
 pass that keeps a gradient (`torch.utils.checkpoint`), as the JAX
 package does, for a model whose activations do not fit.
+
+Under a `torch.profiler` session the forward records its sections as
+spans (`profiling.span`): `net.encode` (STFT, conv and the speaker
+projection), each block's `block.intra`, `block.inter` and
+`block.attn`, and `net.decode` (deconv and synthesis).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from lookoncetohear_tpu_torch.ops.norms import (LayerNorm, PReLU,
                                                 flat_layer_norm,
                                                 head_segment_matrix)
 from lookoncetohear_tpu_torch.ops.ring_step import ring_attend_int8_native
+from lookoncetohear_tpu_torch.profiling import span
 
 
 
@@ -259,35 +265,40 @@ class GridNetBlockStreaming(nn.Module):
         b, c, t, f = x.shape
         # intra-frequency BiLSTM over the F bins of each frame; at T=1
         # the channel norms take the flat serving form
-        inp = x.permute(0, 2, 3, 1)                       # [B, T, F, C]
-        if t == 1:
-            y = flat_layer_norm(inp.reshape(b * f, c), self.intra_norm.weight,
-                                self.intra_norm.bias, self.intra_norm.eps)
-        else:
-            y = self.intra_norm(inp)
-        y, _ = self.intra_rnn(y.reshape(b * t, f, c))     # [B*T, F, 2H]
-        y = self.intra_linear(y).reshape(b, t, f, c) + inp
+        with span("block.intra"):
+            inp = x.permute(0, 2, 3, 1)                   # [B, T, F, C]
+            if t == 1:
+                y = flat_layer_norm(inp.reshape(b * f, c),
+                                    self.intra_norm.weight,
+                                    self.intra_norm.bias, self.intra_norm.eps)
+            else:
+                y = self.intra_norm(inp)
+            y, _ = self.intra_rnn(y.reshape(b * t, f, c))  # [B*T, F, 2H]
+            y = self.intra_linear(y).reshape(b, t, f, c) + inp
 
         # inter-time LSTM over T from the carried (h, c)
-        if t == 1:
-            z = flat_layer_norm(y.reshape(b * f, c), self.inter_norm.weight,
-                                self.inter_norm.bias, self.inter_norm.eps)
-        else:
-            z = self.inter_norm(y)
-        z = z.reshape(b, t, f, c).transpose(1, 2).reshape(b * f, t, c)
-        h0 = state["h"].reshape(b * f, self.hidden)
-        c0 = state["c"].reshape(b * f, self.hidden)
-        z, (h_t, c_t) = self.inter_rnn(z, h0, c0)
-        new_state = dict(state)
-        new_state["h"] = h_t.reshape(b, f, self.hidden)
-        new_state["c"] = c_t.reshape(b, f, self.hidden)
-        z = self.inter_linear(z).reshape(b, f, t, c).transpose(1, 2) + y
+        with span("block.inter"):
+            if t == 1:
+                z = flat_layer_norm(y.reshape(b * f, c),
+                                    self.inter_norm.weight,
+                                    self.inter_norm.bias, self.inter_norm.eps)
+            else:
+                z = self.inter_norm(y)
+            z = z.reshape(b, t, f, c).transpose(1, 2).reshape(b * f, t, c)
+            h0 = state["h"].reshape(b * f, self.hidden)
+            c0 = state["c"].reshape(b * f, self.hidden)
+            z, (h_t, c_t) = self.inter_rnn(z, h0, c0)
+            new_state = dict(state)
+            new_state["h"] = h_t.reshape(b, f, self.hidden)
+            new_state["c"] = c_t.reshape(b, f, self.hidden)
+            z = self.inter_linear(z).reshape(b, f, t, c).transpose(1, 2) + y
 
         if self.use_attn:
-            if t == 1:
-                z = z + self.attention_section(z, new_state)
-            else:
-                z = z + self.attention_full(z, state, new_state)
+            with span("block.attn"):
+                if t == 1:
+                    z = z + self.attention_section(z, new_state)
+                else:
+                    z = z + self.attention_full(z, state, new_state)
         return z.permute(0, 3, 1, 2), new_state
 
 
@@ -395,18 +406,19 @@ class StreamingTFGridNet(nn.Module):
         b = x.shape[0]
         f, k = self.n_freqs, self.t_ksize - 1
 
-        spec = stft_ops.fb_encode(x, self.n_fft, self.stride, self.fb)
-        batch = torch.cat([spec[:, :, :f], spec[:, :, f:]], dim=1)
-        batch = batch.transpose(2, 3)                     # [B, 2M, T, F]
-        t = batch.shape[2]
-        new_state = dict(state)
+        with span("net.encode"):
+            spec = stft_ops.fb_encode(x, self.n_fft, self.stride, self.fb)
+            batch = torch.cat([spec[:, :, :f], spec[:, :, f:]], dim=1)
+            batch = batch.transpose(2, 3)                 # [B, 2M, T, F]
+            t = batch.shape[2]
+            new_state = dict(state)
 
-        padded = torch.cat([state["conv_buf"], batch], dim=2)
-        new_state["conv_buf"] = padded[:, :, -k:]
-        h = self.conv(padded)                             # [B, D, T, F]
+            padded = torch.cat([state["conv_buf"], batch], dim=2)
+            new_state["conv_buf"] = padded[:, :, -k:]
+            h = self.conv(padded)                         # [B, D, T, F]
 
-        emb = self.embed_proj_norm(self.embed_proj_dense(spk_embedding))
-        emb = emb.reshape(b, self.emb_dim, f)[:, :, None, :]
+            emb = self.embed_proj_norm(self.embed_proj_dense(spk_embedding))
+            emb = emb.reshape(b, self.emb_dim, f)[:, :, None, :]
 
         blocks = list(state["blocks"])
         for i, blk in enumerate(self.blocks):
@@ -419,17 +431,18 @@ class StreamingTFGridNet(nn.Module):
                 h, blocks[i] = blk(h, blocks[i])
         new_state["blocks"] = blocks
 
-        padded = torch.cat([state["deconv_buf"], h], dim=2)
-        new_state["deconv_buf"] = padded[:, :, -k:]
-        y = self.deconv(padded)                           # [B, 2S, T, F]
-        y = y.reshape(b, self.n_srcs, 2, t, f).transpose(3, 4)
-        y = torch.cat([y[:, :, 0], y[:, :, 1]], dim=2)    # [B, S, 2F, T]
+        with span("net.decode"):
+            padded = torch.cat([state["deconv_buf"], h], dim=2)
+            new_state["deconv_buf"] = padded[:, :, -k:]
+            y = self.deconv(padded)                       # [B, 2S, T, F]
+            y = y.reshape(b, self.n_srcs, 2, t, f).transpose(3, 4)
+            y = torch.cat([y[:, :, 0], y[:, :, 1]], dim=2)  # [B, S, 2F, T]
 
-        y = torch.cat([state["istft_buf"], y], dim=3)
-        new_state["istft_buf"] = y[..., -self.istft_lookback:]
-        audio = stft_ops.fb_decode(y, self.n_fft, self.stride, self.fb)
-        audio = audio[..., self.istft_lookback * self.stride:]
-        audio = audio[..., :t * self.stride]
+            y = torch.cat([state["istft_buf"], y], dim=3)
+            new_state["istft_buf"] = y[..., -self.istft_lookback:]
+            audio = stft_ops.fb_decode(y, self.n_fft, self.stride, self.fb)
+            audio = audio[..., self.istft_lookback * self.stride:]
+            audio = audio[..., :t * self.stride]
         if return_features:
             return audio, new_state, h
         return audio, new_state

@@ -1,7 +1,8 @@
 """Tracing and latency helpers (counterpart of
-`lookoncetohear_tpu/profiling.py`): a torch.profiler trace, a latency
-histogram, an operation count, and the time of a chained step, by CUDA
-events on the card and by the host's clock on the CPU."""
+`lookoncetohear_tpu/profiling.py`): the program's spans, a
+torch.profiler trace, a latency histogram, an operation count, and the
+time of a chained step, by CUDA events on the card and by the host's
+clock on the CPU."""
 
 from __future__ import annotations
 
@@ -11,8 +12,29 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
-from torch.utils.flop_counter import FlopCounterMode
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import ProfilerActivity, profile, record_function
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program's work, recorded only while a
+    `torch.profiler` session is active (`trace` below, or any profiler
+    an operator or a benchmark starts): then a `record_function` range,
+    which the profiler keeps on the clock of its kernel records and to
+    which it links the kernels its ops launch (a graph replay's kernels
+    link to the replay's `cudaGraphLaunch` instead). At all other times
+    one shared no-op context, after a single read of the flag the
+    profiler sets. Names start with their layer: `engine.`, `train.`,
+    `net.`, `block.`.
+
+        with profiling.span("engine.replay"):
+            graph.replay()
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return record_function(name)
 
 
 @contextlib.contextmanager
@@ -20,7 +42,11 @@ def trace(logdir: str):
     """torch.profiler around a block, written as a Chrome trace to
     logdir/trace.json (chrome://tracing, Perfetto); the CUDA activity is
     recorded where a card is present. Yields the profiler, whose
-    `key_averages()` sums the block's ops by name.
+    `key_averages()` sums the block's ops by name. The program's spans
+    (`span`: `engine.*` around the serving step's input, replay and
+    fetch, `train.*` around the training step's phases, `net.*` and
+    `block.*` around the model's sections) appear in the trace over the
+    kernels they launched.
 
         with profiling.trace("runs/tsh/trace"):
             engine.step(x)
@@ -89,6 +115,9 @@ def cost_analysis(fn, *args) -> dict:
     `bytes_accessed`: the bytes of every tensor among the arguments and
     the result, each counted once, the least any implementation of the
     call must move (XLA's figure sums each op's operands instead)."""
+    # imported here: it imports triton where triton is installed, which
+    # every module that records spans would otherwise pay for at import
+    from torch.utils.flop_counter import FlopCounterMode
     with FlopCounterMode(display=False) as counter:
         out = fn(*args)
     nbytes = sum(t.numel() * t.element_size()

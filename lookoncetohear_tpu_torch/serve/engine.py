@@ -30,6 +30,12 @@ op: the kernels' launch counters count only eager calls (a replay runs
 no Python), and a profile then shows each op's launch. On the CPU the
 step is always eager.
 
+Under a `torch.profiler` session the engine records its spans
+(`profiling.span`): `engine.step` around each call, and inside it
+`engine.input` (> `engine.input_wait`, the wait for a pinned buffer),
+`engine.mask`, `engine.replay` or `engine.eager_step`,
+`engine.stage_out` and `engine.fetch` (> `engine.fetch_wait`).
+
 `MultiDeviceEngine` stands for the JAX engine's `mesh=` path: one
 engine per device (`devices=`), each over its slice of the streams,
 stepped in lockstep with no collectives, since streams are independent.
@@ -46,6 +52,7 @@ import torch
 from lookoncetohear_tpu_torch import resolve_device
 from lookoncetohear_tpu_torch.models.streaming_tfgridnet import \
     ring_slot_leaves
+from lookoncetohear_tpu_torch.profiling import span
 
 # eager steps before a capture: they load the kernels' library, set the
 # kernels' shared-memory attributes, allocate the int8 ring's arrival
@@ -206,20 +213,22 @@ class StreamingEngine:
         buffers and does not wait for the card; a buffer is rewritten
         only after the copy that read it has finished, so the host waits
         only once the card is `n_buffers` steps behind."""
-        x = torch.as_tensor(chunks)
-        if self.device.type != "cuda" or x.device.type != "cpu":
-            self._x_in.copy_(x)
-            return
-        while len(self._pinned_in) < n_buffers:
-            self._pinned_in.append(
-                (torch.empty_like(self._x_in, device="cpu").pin_memory(),
-                 torch.cuda.Event()))
-        self._pinned_in.append(self._pinned_in.pop(0))
-        buf, done = self._pinned_in[-1]
-        done.synchronize()
-        buf.copy_(x)
-        self._x_in.copy_(buf, non_blocking=True)
-        done.record()
+        with span("engine.input"):
+            x = torch.as_tensor(chunks)
+            if self.device.type != "cuda" or x.device.type != "cpu":
+                self._x_in.copy_(x)
+                return
+            while len(self._pinned_in) < n_buffers:
+                self._pinned_in.append(
+                    (torch.empty_like(self._x_in, device="cpu").pin_memory(),
+                     torch.cuda.Event()))
+            self._pinned_in.append(self._pinned_in.pop(0))
+            buf, done = self._pinned_in[-1]
+            with span("engine.input_wait"):
+                done.synchronize()
+            buf.copy_(x)
+            self._x_in.copy_(buf, non_blocking=True)
+            done.record()
 
     def _upload_primed(self) -> bool:
         """Bring the device mask up to date (a copy only when it changed:
@@ -228,7 +237,8 @@ class StreamingEngine:
         primed = self.primed & self.active
         if not np.array_equal(primed, self._primed_host):
             self._primed_host = primed.copy()
-            self._primed_dev.copy_(torch.from_numpy(primed))
+            with span("engine.mask"):
+                self._primed_dev.copy_(torch.from_numpy(primed))
         return bool(primed.all())
 
     def _run(self, chunks, n_in: int = 2) -> torch.Tensor:
@@ -240,9 +250,11 @@ class StreamingEngine:
         if self.cuda_graph:
             graph, y = self._graphs.get(all_primed) or \
                 self._capture(all_primed)
-            graph.replay()
+            with span("engine.replay"):
+                graph.replay()
         else:
-            y = self._step_core(all_primed)
+            with span("engine.eager_step"):
+                y = self._step_core(all_primed)
         self.primed |= self.active
         return y
 
@@ -253,8 +265,9 @@ class StreamingEngine:
         audio [max_streams, n_srcs, chunk] on the engine's device,
         delayed by the model's algorithmic latency; a tensor of its own,
         which later steps leave alone."""
-        y = self._run(chunks)
-        return y.clone() if self.cuda_graph else y
+        with span("engine.step"):
+            y = self._run(chunks)
+            return y.clone() if self.cuda_graph else y
 
     @torch.no_grad()
     def step_pipelined(self, chunks, depth: int = 4):
@@ -268,25 +281,29 @@ class StreamingEngine:
         compute of step t. A host buffer is reused only after its result
         was fetched; host chunks rotate through depth + 1 pinned input
         buffers, so the input copies never hold the host back sooner."""
-        y = self._run(chunks, depth + 1)
-        if self.device.type == "cuda":
-            buf = self._pinned_out.pop() if self._pinned_out else \
-                torch.empty(y.shape, dtype=y.dtype).pin_memory()
-            buf.copy_(y, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            buf, done = y.clone(), None
-        self._pipeline.append((buf, done))
-        if len(self._pipeline) > depth:
-            return self._fetch(*self._pipeline.pop(0))
-        return None
+        with span("engine.step"):
+            y = self._run(chunks, depth + 1)
+            with span("engine.stage_out"):
+                if self.device.type == "cuda":
+                    buf = self._pinned_out.pop() if self._pinned_out else \
+                        torch.empty(y.shape, dtype=y.dtype).pin_memory()
+                    buf.copy_(y, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    buf, done = y.clone(), None
+            self._pipeline.append((buf, done))
+            if len(self._pipeline) > depth:
+                return self._fetch(*self._pipeline.pop(0))
+            return None
 
     def _fetch(self, buf, done) -> np.ndarray:
-        if done is not None:
-            done.synchronize()
-            self._pinned_out.append(buf)
-        return buf.to(torch.float32, copy=True).numpy()
+        with span("engine.fetch"):
+            if done is not None:
+                with span("engine.fetch_wait"):
+                    done.synchronize()
+                self._pinned_out.append(buf)
+            return buf.to(torch.float32, copy=True).numpy()
 
     def drain(self):
         """Fetch every output still in flight (throughput mode tail), in

@@ -43,6 +43,7 @@ from lookoncetohear_tpu_torch import utils
 from lookoncetohear_tpu_torch.data.loader import DataLoader, stop_workers
 from lookoncetohear_tpu_torch.parallel import distributed
 from lookoncetohear_tpu_torch.parallel.mesh import rank_device
+from lookoncetohear_tpu_torch.profiling import span
 from lookoncetohear_tpu_torch.train import npz_ckpt
 from lookoncetohear_tpu_torch.train.checkpoint import CheckpointManager
 from lookoncetohear_tpu_torch.weights import load_checkpoint
@@ -149,14 +150,22 @@ class Trainer:
 
     def train_step(self, batch: dict, epoch: int) -> dict:
         """Loss, backward, clip, Adam on one device batch; returns the
-        metrics as detached device scalars."""
-        self.opt.zero_grad(set_to_none=True)
-        loss, metrics = self.task.loss_and_metrics(batch, epoch)
-        loss.backward()
+        metrics as detached device scalars. Under a `torch.profiler`
+        session each phase is a span: `train.forward` (`zero_grad` and
+        the loss), `train.backward`, `train.clip` (when clipping),
+        `train.optimizer`. The backward's kernels are launched from
+        autograd's device thread, outside `train.backward`."""
+        with span("train.forward"):
+            self.opt.zero_grad(set_to_none=True)
+            loss, metrics = self.task.loss_and_metrics(batch, epoch)
+        with span("train.backward"):
+            loss.backward()
         if self.grad_clip:
-            clip_by_global_norm([p.grad for p in self.params
-                                 if p.grad is not None], self.grad_clip)
-        self.opt.step()
+            with span("train.clip"):
+                clip_by_global_norm([p.grad for p in self.params
+                                     if p.grad is not None], self.grad_clip)
+        with span("train.optimizer"):
+            self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     def set_lr(self, lr: float) -> None:
