@@ -9,7 +9,9 @@ memory, spills), holds each kernel
 against its plain PyTorch version at the serving shapes (the BiLSTM
 scan also at the full forward's 625 rows and at the enrollment net's
 two shapes, the int8 ring step over w + 3 chained calls from one
-state, the ring attention step also at an odd K width), loads the
+state, the ring attention step also at an odd K width, the flat
+LayerNorms' kernel at the serving geometries against the eager chain it
+replaced and the plain row norm), loads the
 checkpoints (checkpoints/tsh_r5_5k_best.npz, embed_r5_5k_best.npz) and
 drives each path through the entry points a user calls, with every
 launch count set to 0 just before the path and read just after:
@@ -37,12 +39,15 @@ launch count set to 0 just before the path and read just after:
   * `step_pipelined` + `drain` against `step` on that engine.
 Then it times each kernel, its plain version and, where one exists,
 the one PyTorch call that computes the same function, with CUDA events
-(the BiLSTM scan and cuDNN's LSTM at 64 and 625 rows, at the
+(the flat norms at a flagship step's four shapes and the default Net's
+rows, beside the eager chain they replaced and `F.layer_norm`; the
+BiLSTM scan and cuDNN's LSTM at 64 and 625 rows, at the
 enrollment shapes and at the eval's batch of 4 x 5 s), beside the floor of that timing (one launch of a
 one-element `add_`); the engine step at each ring, eager and as a
 CUDA graph (`benchmark_device`, `benchmark`, call to synchronize),
-each with a profile of its device ops, which must hold 3 BiLSTM scans
-and 3 ring steps a step and no other kernel of the port (the int8 path
+each with a profile of its device ops, which must hold 3 BiLSTM scans,
+3 ring steps and 12 flat norms (6 at a float ring) a step and no other
+kernel of the port (the int8 path
 must launch no `ring_advance_pos`: the ring step advances its cursor
 itself; the graph's replays must bump no launch counter); one
 full forward; and `EmbedNet` on 5 s. Last, the eval paths:
@@ -364,11 +369,26 @@ TRACE_NAMES = {
     "ring_int8_step": "ring_int8_step_kernel<__nv_bfloat16>",
     "attn_step_f32": "attn_step_kernel<float, float>",
     "attn_step_bf16": "attn_step_kernel<__nv_bfloat16, __nv_bfloat16>",
-    "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>"}
+    "attn_step_f32_bf16kv": "attn_step_kernel<float, __nv_bfloat16>",
+    "flat_norm": "flat_norm_kernel<"}
 PORT_KERNELS = ("bilstm_scan_kernel", "bilstm_train_fwd_kernel",
                 "bilstm_train_bwd_kernel", "bilstm_h128_mma_kernel",
                 "bilstm_h128_bwd_kernel",
-                "ring_int8_step_kernel", "attn_step_kernel")
+                "ring_int8_step_kernel", "attn_step_kernel",
+                "flat_norm_kernel")
+# flat-norm launches (csrc/flat_norm.cu) a streaming step: the flagship's
+# 3 blocks x (intra, inter), with the int8 ring also x (the Q/K/V launch,
+# the attention output's norm); the default Net's 6 blocks x (intra,
+# inter)
+FLAT_NORMS = dict(int8=12, float_ring=6, default_net=12)
+# the flagship's fused Q/K/V projection y [64, F, C] and its blocks'
+# widths (F=97, 4 heads, e=6, v dim 16), and the row norms of a step
+FLAT_QKV = dict(f=97, nh=4, dims=(6, 6, 16))
+FLAT_ROWS = {"intra/inter bf16": (STREAMS * 97, 64, "bf16"),
+             "attn out bf16": (STREAMS, 97 * 64, "bf16"),
+             "default Net f32": (STREAMS * 141, 64, "f32")}
+TOL_FLAT_F32 = 2e-5           # atol: the two sums' order, |out| <~ 5
+TOL_FLAT_BF16 = (2 ** -7, 1e-2)   # rtol, atol: one bf16 step of the output
 # traces of a profile at most: eager-engine traces holding 29 of 10
 # steps' 30 B2 launches came back in two runs of this script, and on
 # some hosts every trace of a profile lacks the same one record (11 of a
@@ -1564,7 +1584,7 @@ def corpus_phases(torch, smi, res, reset_counts, read_counts, expect_counts,
             f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, reserved "
             f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB of the "
             f"card's {total / gib:.2f} GiB [{smi}]")
-    phase("path: SeparationTask", 115, separation, grad=True)
+    phase("path: SeparationTask", 105, separation, grad=True)
 
     def losses_card():
         g = np.random.default_rng(5)
@@ -1798,14 +1818,17 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
             if float((gl.cpu() - cl).abs().max()) > TOL_STATE * max(
                     1.0, float(cl.abs().max())):
                 raise AssertionError(f"{name}: GPU state differs")
-    expect_counts(read_counts(), {"bilstm_scan_h128": 6 * steps},
-                  "default Net, GPU engine")
+    expect_counts(read_counts(), {
+        "bilstm_scan_h128": 6 * steps,
+        "flat_norm": FLAT_NORMS["default_net"] * steps},
+        "default Net, GPU engine")
     if peak == 0.0:
         raise AssertionError("engine output is all zeros")
     log(f"  4 streams x {steps} steps, float32, each step from the same "
         f"state: max|GPU - CPU| / peak = {worst:.3e} (tolerance "
         f"{TOL_PATH}); state within {TOL_STATE}; launches: "
-        f"bilstm_scan_h128 {6 * steps} (6 blocks a step), nothing else")
+        f"bilstm_scan_h128 {6 * steps} (6 blocks a step), flat_norm "
+        f"{FLAT_NORMS['default_net'] * steps}, nothing else")
     del engines
 
     # 64 streams: the graph engine against the eager engine, bit for bit
@@ -1838,7 +1861,8 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
                                          f"{name} differs from eager")
         counts = read_counts()
         per_call = 6 * (DEFAULT_STEPS + 2 * (WARMUP_STEPS + 1))
-        expect_counts(counts, {"bilstm_scan_h128": per_call}, label)
+        expect_counts(counts, {"bilstm_scan_h128": per_call,
+                               "flat_norm": per_call * 2}, label)
         if set(engs[1]._graphs) != {False, True}:
             raise AssertionError("the graph engine did not capture both "
                                  "graphs")
@@ -1852,7 +1876,8 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
             f"to the eager engine's after every step; launches: "
             f"bilstm_scan_h128 {counts['bilstm_scan_h128']} = 6 x "
             f"({DEFAULT_STEPS} eager steps + 2 graphs x ({WARMUP_STEPS} "
-            f"warm-up steps + 1 capture)), nothing else")
+            f"warm-up steps + 1 capture)), flat_norm twice that, nothing "
+            f"else")
 
     # the full forward, GPU against CPU, and the streamed engine against it
     e1 = torch.from_numpy(emb[:1, None])
@@ -1973,7 +1998,8 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
         reset_counts()
         e_ms = wall_ms(lambda i: eager.step(x[i % DEFAULT_STEPS]), 20)
         counts = read_counts()
-        expect_counts(counts, {"bilstm_scan_h128": 6 * 20},
+        expect_counts(counts, {"bilstm_scan_h128": 6 * 20,
+                               "flat_norm": FLAT_NORMS["default_net"] * 20},
                       f"default Net {label}, 20 eager steps")
         if label == "float32":
             launch_counts["bilstm_scan_h128"] = counts["bilstm_scan_h128"]
@@ -1984,9 +2010,10 @@ def default_net_phase(torch, smi, res, launch_counts, reset_counts,
                                           repeats=3))
         reset_counts()
         out.update(profile_steps(
-            graph, x[:10], torch, {"bilstm_scan_h128": 6},
+            graph, x[:10], torch, {"bilstm_scan_h128": 6,
+                                   "flat_norm": FLAT_NORMS["default_net"]},
             replays="the graph's every step matched the eager engine's, "
-                    "6 B2 launches a step, bit for bit"))
+                    "6 B2 and 12 flat_norm launches a step, bit for bit"))
         expect_counts(read_counts(), {}, f"default Net {label} replays")
         res["default_net"][label] = out
         log(f"  default Net, {DEFAULT_STREAMS} streams, {label}: CUDA graph "
@@ -2470,6 +2497,9 @@ def main() -> int:
             bilstm_train_bwd_h128_cuda, bilstm_train_fwd_h128_cuda,
             bilstm_train_reference, scan_weight_grad, tile_rows)
         from lookoncetohear_tpu_torch.ops.lstm import bidir_scan_inputs
+        from lookoncetohear_tpu_torch.ops.norms import (
+            flat_head_layer_norm, flat_layer_norm, flat_layer_norm_reference,
+            flat_norm_cuda, flat_qkv_layer_norm, head_segment_matrix)
         from lookoncetohear_tpu_torch.ops.ring_step import (
             arrival_counter, ring_attend_int8_step_cuda,
             ring_attend_int8_step_reference)
@@ -2508,6 +2538,7 @@ def main() -> int:
         bilstm_train_bwd_h128_cuda.launches = 0
         ring_attend_int8_step_cuda.launches = 0
         attention_step_cuda.launches = 0
+        flat_norm_cuda.launches = 0
         for k in attn_names:
             attention_step_cuda.variant_launches[k] = 0
 
@@ -2521,7 +2552,11 @@ def main() -> int:
                     bilstm_scan_bwd_train_h128=(
                         bilstm_train_bwd_h128_cuda.launches),
                     ring_int8_step=ring_attend_int8_step_cuda.launches,
+                    flat_norm=flat_norm_cuda.launches,
                     **attention_step_cuda.variant_launches)
+
+    def flat_norms(kv_dtype):
+        return FLAT_NORMS["int8" if kv_dtype == torch.int8 else "float_ring"]
 
     def expect_counts(got, want, what):
         """Every kernel in `want` launched exactly that often, every
@@ -2714,6 +2749,104 @@ def main() -> int:
                     errs.append(err)
             res[name]["max_abs_err"] = max(errs)
     phase("attn_step vs plain", 10, attn_check)
+
+    # ---- 5b. the flat LayerNorms vs plain -------------------------------
+    def flat_qkv_inputs(b, dtype, seed):
+        """The flagship's fused Q/K/V projection y [b, 97, 112] before its
+        PReLUs, and each block's (dim, alpha, scale, bias, eps), made on
+        the card from a seed."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        f, nh = FLAT_QKV["f"], FLAT_QKV["nh"]
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        y = (randn(b, f, nh * sum(FLAT_QKV["dims"])) * 0.7 + 0.1).to(dtype)
+        parts = [(dim, (torch.rand(1, generator=gen, device=dev) * 0.4)
+                  .to(dtype), (1 + 0.3 * randn(f * dim)).to(dtype),
+                  (0.2 * randn(f * dim)).to(dtype), 1e-5)
+                 for dim in FLAT_QKV["dims"]]
+        return y, parts
+
+    flat_segs = [torch.from_numpy(head_segment_matrix(
+        FLAT_QKV["f"] * FLAT_QKV["nh"] * dim, FLAT_QKV["nh"], dim)).to(dev)
+        for dim in FLAT_QKV["dims"]]
+
+    def flat_qkv_plain(y, parts):
+        """The eager chain the kernel replaced, on the card: one PReLU
+        over y with the three slopes, each block's slice copied, its
+        affine expanded over the heads, `flat_head_layer_norm` against
+        the segment matrices (made once, as the model's buffers were)."""
+        f, nh = FLAT_QKV["f"], FLAT_QKV["nh"]
+        alpha = torch.cat([a.expand(nh * dim) for dim, a, *_ in parts])
+        yp = torch.where(y >= 0, y, alpha * y)
+        outs, col = [], 0
+        for (dim, _, sc, bi, eps), seg in zip(parts, flat_segs):
+            outs.append(flat_head_layer_norm(
+                yp[..., col:col + nh * dim].reshape(y.shape[0], -1), seg,
+                float(f * dim),
+                sc.reshape(f, 1, dim).expand(f, nh, dim).reshape(-1),
+                bi.reshape(f, 1, dim).expand(f, nh, dim).reshape(-1), eps))
+            col += nh * dim
+        return outs
+
+    def flat_row_inputs(rows, d, dtype, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(rows, d, generator=gen, device=dev) * 1.3 - 0.4
+        sc = 1 + 0.3 * torch.randn(d, generator=gen, device=dev)
+        bi = 0.2 * torch.randn(d, generator=gen, device=dev)
+        return x.to(dtype), sc.to(dtype), bi.to(dtype)
+
+    def flat_err(got, want):
+        """max|got - want| and whether it is within the dtype's bound."""
+        d = (got.float() - want.float()).abs()
+        if want.dtype == torch.bfloat16:
+            rtol, atol = TOL_FLAT_BF16
+            ok = bool((d <= atol + rtol * want.float().abs()).all())
+        else:
+            ok = bool((d <= TOL_FLAT_F32).all())
+        return d.max().item(), ok
+
+    def flat_check():
+        """The Q/K/V launch (bf16 and float32, 64 and 3 streams) against
+        the eager chain it replaced, and the row norms at a step's
+        shapes, at 3 rows and at a width 16 bytes do not divide against
+        `flat_layer_norm_reference`, all on the card; one launch a call."""
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for b in (STREAMS, 3):
+                y, parts = flat_qkv_inputs(b, dtype, b)
+                reset_counts()
+                got = flat_qkv_layer_norm(y, FLAT_QKV["nh"], parts)
+                torch.cuda.synchronize()
+                expect_counts(read_counts(), {"flat_norm": 1}, "Q/K/V")
+                for blk, g_, w_ in zip("QKV", got, flat_qkv_plain(y, parts)):
+                    err, ok = flat_err(g_, w_)
+                    if not (ok and g_.dtype == dtype
+                            and g_.shape == w_.shape):
+                        raise AssertionError(f"{blk} {dtype} B={b}: {err}")
+                    errs.append(err)
+                log(f"  Q/K/V of y {list(y.shape)} {str(dtype)[6:]}: one "
+                    f"launch; max|kernel - plain| {max(errs[-3:]):.3e}")
+        rows = [*FLAT_ROWS.values(), (3, 97 * 64, "f32"), (3, 64, "bf16"),
+                (5, 10, "f32")]
+        for n, d, dt in rows:
+            dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+            x, sc, bi = flat_row_inputs(n, d, dtype, n + d)
+            reset_counts()
+            got = flat_layer_norm(x, sc, bi, 1e-5)
+            torch.cuda.synchronize()
+            expect_counts(read_counts(), {"flat_norm": 1}, "row norm")
+            err, ok = flat_err(got, flat_layer_norm_reference(x, sc, bi,
+                                                              1e-5))
+            if not ok:
+                raise AssertionError(f"row norm [{n}, {d}] {dt}: {err}")
+            errs.append(err)
+            log(f"  row norm [{n}, {d}] {dt}: max|kernel - plain| "
+                f"{err:.3e}")
+        res["flat_norm"] = dict(max_abs_err=max(errs))
+        log(f"  tolerances: float32 atol {TOL_FLAT_F32}, bf16 rtol/atol "
+            f"{TOL_FLAT_BF16}")
+    phase("flat_norm vs plain", 10, flat_check)
 
     # ---- 6. the paths ---------------------------------------------------
     def load():
@@ -2932,7 +3065,9 @@ def main() -> int:
                 elif not torch.equal(g, c):
                     raise AssertionError(f"{name}: cursor differs")
         expect_counts(read_counts(), {"bilstm_scan": 3 * steps,
-                                      kernel: 3 * steps}, "GPU engine")
+                                      kernel: 3 * steps,
+                                      "flat_norm": flat_norms(kv_dtype)
+                                      * steps}, "GPU engine")
         if peak == 0.0:
             raise AssertionError("engine output is all zeros")
         ring = "int8" if kv_dtype == torch.int8 else "float32"
@@ -3000,15 +3135,18 @@ def main() -> int:
             raise AssertionError(f"bad output {tuple(y.shape)}")
         if y[1:].abs().max().item() == 0.0:
             raise AssertionError("engine output is all zeros")
-        expect_counts(counts, {"bilstm_scan": 3 * steps, kernel: 3 * steps},
-                      label)
+        flat = flat_norms(kv_dtype)
+        expect_counts(counts, {"bilstm_scan": 3 * steps, kernel: 3 * steps,
+                               "flat_norm": flat * steps}, label)
         launch_counts[kernel] = counts[kernel]
         launch_counts.setdefault("bilstm_scan", counts["bilstm_scan"])
+        launch_counts.setdefault("flat_norm", counts["flat_norm"])
         engines[label] = (eng, x)
         log(f"  {STREAMS} streams x {steps} steps, {label}: finite, peak "
             f"|y| {y.abs().max().item():.3f}; launches: bilstm_scan "
             f"{counts['bilstm_scan']}, {kernel} {counts[kernel]} (3 blocks "
-            f"x {steps} steps each, no other kernel)")
+            f"x {steps} steps each), flat_norm {counts['flat_norm']} ({flat} "
+            f"a step), no other kernel")
     phase("path: 64-stream bf16 engine", 10, lambda: path_64(
         "bf16 + int8 K/V", torch.bfloat16, torch.int8, "ring_int8_step",
         PATH_STEPS))
@@ -3105,8 +3243,9 @@ def main() -> int:
                                          f"differs from eager")
         counts = read_counts()
         per_call = 3 * (GRAPH_STEPS + 2 * (WARMUP_STEPS + 1))
-        expect_counts(counts, {"bilstm_scan": per_call, kernel: per_call},
-                      label)
+        expect_counts(counts, {"bilstm_scan": per_call, kernel: per_call,
+                               "flat_norm": per_call // 3
+                               * flat_norms(kv_dtype)}, label)
         if set(engs[1]._graphs) != {False, True}:
             raise AssertionError("the graph engine did not capture both "
                                  "graphs")
@@ -3119,8 +3258,8 @@ def main() -> int:
             f"and every state leaf bit-identical to the eager engine's "
             f"after every step; launches: {kernel} and bilstm_scan "
             f"{counts[kernel]} each = 3 x ({GRAPH_STEPS} eager steps + 2 "
-            f"graphs x ({WARMUP_STEPS} warm-up steps + 1 capture)): the "
-            f"replays ran no Python")
+            f"graphs x ({WARMUP_STEPS} warm-up steps + 1 capture)), "
+            f"flat_norm {counts['flat_norm']}: the replays ran no Python")
     for label, dtype, kv_dtype, kernel in graph_rings:
         phase(f"graph: {label} graph vs eager engine", 10,
               lambda a=(label, dtype, kv_dtype, kernel): graph_vs_eager(*a))
@@ -3328,8 +3467,10 @@ def main() -> int:
             f"steps), RTF {step_ms / CHUNK_MS:.4f} [{smi}]")
         out = dict(step_ms=step_ms, rtf=step_ms / CHUNK_MS)
         out.update(profile_steps(eng, x[:10], torch,
-                                 {"bilstm_scan": 3, kernel: 3}, absent,
-                                 (reset_counts, read_counts)))
+                                 {"bilstm_scan": 3, kernel: 3,
+                                  "flat_norm": flat_norms(
+                                      eng.state["blocks"][0]["k_buf"].dtype)},
+                                 absent, (reset_counts, read_counts)))
         return out
 
     def graph_times(label, kernel, absent=()):
@@ -3355,10 +3496,13 @@ def main() -> int:
             f"best, RTF {out['rtf']:.4f}; benchmark p50 "
             f"{out['p50_ms_incl_transport']:.3f} ms incl. transport [{smi}]")
         reset_counts()
+        flat = flat_norms(eng.state["blocks"][0]["k_buf"].dtype)
         out.update(profile_steps(
-            eng, x[:10], torch, {"bilstm_scan": 3, kernel: 3}, absent,
+            eng, x[:10], torch, {"bilstm_scan": 3, kernel: 3,
+                                 "flat_norm": flat}, absent,
             replays=f"the graph's every step matched the eager engine's, "
-                    f"3 B2 and 3 {kernel} launches a step, bit for bit"))
+                    f"3 B2, 3 {kernel} and {flat} flat_norm launches a "
+                    f"step, bit for bit"))
         expect_counts(read_counts(), {}, f"{label} graph replays")
         return out
 
@@ -3462,6 +3606,55 @@ def main() -> int:
             f"bound {res['ring_int8_step']['bound_ms'] * 1e3:.2f} us "
             f"({nbytes / 1e6:.1f} MB over {live} live slots), plain "
             f"{p_ms * 1e3:.1f} us [{smi}]")
+
+        # the flat norms at a flagship step's shapes (bf16) and the
+        # default Net's rows (float32): the kernel, the eager chain it
+        # replaced (its device time, and call to synchronize), and
+        # torch's layer_norm where one call computes the same function
+        y, parts = flat_qkv_inputs(STREAMS, torch.bfloat16, 40)
+        cases = {"qkv bf16": (
+            lambda i: flat_qkv_layer_norm(y, FLAT_QKV["nh"], parts),
+            lambda i: flat_qkv_plain(y, parts), None,
+            2 * y.numel() * 2 + sum(
+                2 * 2 * FLAT_QKV["f"] * dim for dim in FLAT_QKV["dims"]))}
+        for label, (n, d, dt) in FLAT_ROWS.items():
+            dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+            x, sc, bi = flat_row_inputs(n, d, dtype, 41)
+            cases[label] = (
+                lambda i, a=(x, sc, bi): flat_layer_norm(*a, 1e-5),
+                lambda i, a=(x, sc, bi): flat_layer_norm_reference(*a, 1e-5),
+                lambda i, a=(x, sc, bi): torch.nn.functional.layer_norm(
+                    a[0], (a[0].shape[1],), a[1], a[2], 1e-5),
+                (2 * n * d + 2 * d) * x.element_size())
+        flat = {}
+        for label, (kern, plain, lib, nbytes) in cases.items():
+            for _ in range(5):
+                kern(0), plain(0)
+            k_ms = device_ms(kern, 100)
+            chain_ms = device_ms(plain, 30)
+            p_ms = wall_ms(plain, 10)
+            l_ms = None if lib is None else device_ms(lib, 100)
+            flat[label] = dict(ms=k_ms, chain_ms=chain_ms, plain_ms=p_ms,
+                               library_ms=l_ms,
+                               bound_ms=nbytes / PEAK_BYTES_S * 1e3,
+                               bound_by="bytes")
+            log(f"  flat_norm {label}: kernel {k_ms * 1e3:.2f} us, bound "
+                f"{flat[label]['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} "
+                f"MB), the replaced eager chain {chain_ms * 1e3:.1f} us on "
+                f"the device, {p_ms * 1e3:.1f} us call to synchronize"
+                + ("" if l_ms is None else
+                   f", F.layer_norm {l_ms * 1e3:.2f} us") + f" [{smi}]")
+        step = {k: 3 * (v["qkv bf16"] + 2 * v["intra/inter bf16"]
+                        + v["attn out bf16"])
+                for k, v in (("ms", {a: b["ms"] for a, b in flat.items()}),
+                             ("chain_ms", {a: b["chain_ms"]
+                                           for a, b in flat.items()}))}
+        log(f"  flat_norm, a flagship step's 12 launches: kernel "
+            f"{step['ms'] * 1e3:.1f} us, the replaced chains "
+            f"{step['chain_ms'] * 1e3:.1f} us (device time, launched one "
+            f"after another)")
+        res["flat_norm"].update(flat["qkv bf16"], shapes=flat,
+                                flagship_step=step)
 
         # the floor of device_ms: one launch that does nearly nothing
         one = torch.zeros(1, device=dev)
@@ -3630,7 +3823,9 @@ def main() -> int:
         n = 2 * (WARMUP_STEPS + 1) * 3
         expect_counts(read_counts(), {
             "bilstm_scan": 3 * n, "attn_step_f32": n, "attn_step_bf16": n,
-            "ring_int8_step": n}, "serving precision")
+            "ring_int8_step": n, "flat_norm": n // 3 * (
+                2 * FLAT_NORMS["float_ring"] + FLAT_NORMS["int8"])},
+            "serving precision")
         means = {k: float(np.mean(v)) for k, v in scores.items()}
         for k, v in scores.items():
             if not (v.shape == (EVAL_SCENES,) and np.isfinite(v).all()):
@@ -4278,6 +4473,8 @@ def main() -> int:
         "bilstm_scan_bwd_train_h128": ("bilstm_scan.cu",
                                        "lookoncetohear_tpu/ops/lstm.py:108"),
         "ring_int8_step": ("ring_int8_step.cu", f"{tpu}:334"),
+        # no Pallas kernel: the flat norms' XLA products ("MXU-dot")
+        "flat_norm": ("flat_norm.cu", "lookoncetohear_tpu/ops/norms.py:122"),
         **{name: ("attn_step.cu", f"{tpu}:{129 if kvdt == torch.int8 else 54}")
            for (_, kvdt), name in VARIANTS.items()},
     }

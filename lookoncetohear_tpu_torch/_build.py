@@ -63,6 +63,10 @@ _SIGNATURES = {
     **{name: [_P] * 8 + [_I] * 4 + [_F, _P] for name in (
         "attn_step_f32", "attn_step_bf16", "attn_step_f32_bf16kv",
         "attn_step_f32_int8kv", "attn_step_bf16_int8kv")},
+    # ptrs (n x: x, out, scale, bias, alpha), dims (n x: rows, groups,
+    # segs, width, row_stride, group_stride, vec, team), eps[n], n, stream
+    "flat_norm_f32": [_P, _P, _P, _I, _P],
+    "flat_norm_bf16": [_P, _P, _P, _I, _P],
 }
 
 _lib = None

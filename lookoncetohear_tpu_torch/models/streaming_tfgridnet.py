@@ -53,9 +53,8 @@ from lookoncetohear_tpu_torch.ops.attention import (
     causal_banded_attention_full, local_attention, ring_attend)
 from lookoncetohear_tpu_torch.ops.lstm import LSTM
 from lookoncetohear_tpu_torch.ops.norms import (LayerNorm, PReLU,
-                                                flat_head_layer_norm,
                                                 flat_layer_norm,
-                                                head_segment_matrix)
+                                                flat_qkv_layer_norm)
 from lookoncetohear_tpu_torch.ops.ring_step import ring_attend_int8_native
 from lookoncetohear_tpu_torch.profiling import span
 
@@ -89,15 +88,6 @@ class AttnProjection(nn.Module):
     def project(self, x):
         return self.act(self.dense(x))
 
-    def normalize_flat(self, y_flat, seg, f: int, n_head: int, dim: int):
-        """Per-head LayerNorm on the flat (f, head, dim) serving layout
-        [B, f*n_head*dim]; the [f*dim] affine is shared by the heads."""
-        sc = self.norm.weight.reshape(f, 1, dim).expand(f, n_head, dim)
-        bi = self.norm.bias.reshape(f, 1, dim).expand(f, n_head, dim)
-        return flat_head_layer_norm(y_flat, seg, float(f * dim),
-                                    sc.reshape(-1), bi.reshape(-1),
-                                    self.norm.eps)
-
 
 class GridNetBlockStreaming(nn.Module):
     """One streaming GridNet block, at T=1 or over T frames."""
@@ -127,10 +117,6 @@ class GridNetBlockStreaming(nn.Module):
             self.attn_k = AttnProjection(c, e * nh, f * e)
             self.attn_v = AttnProjection(c, vd * nh, f * vd)
             self.attn_proj = AttnProjection(nh * vd, c, f * c)
-            self.register_buffer("seg_k", torch.from_numpy(
-                head_segment_matrix(f * nh * e, nh, e)), persistent=False)
-            self.register_buffer("seg_v", torch.from_numpy(
-                head_segment_matrix(f * nh * vd, nh, vd)), persistent=False)
 
     # -- head-major projections (float ring, full-utterance forward) -------
 
@@ -198,22 +184,15 @@ class GridNetBlockStreaming(nn.Module):
         b, _, f, c = z.shape
         nh, e, vd = self.n_head, self.e_dim, self.v_dim
         projs = (self.attn_q, self.attn_k, self.attn_v)
-        widths = (e * nh, e * nh, vd * nh)
-        # one [C, 2*E*nh + V*nh] projection instead of three
+        # one [C, 2*E*nh + V*nh] projection instead of three; each block's
+        # PReLU goes with its norm
         kern = torch.cat([p.dense.weight for p in projs], dim=0)
         bias = torch.cat([p.dense.bias for p in projs])
-        alpha = torch.cat([p.act.weight.expand(wd)
-                           for p, wd in zip(projs, widths)])
         y = nn.functional.linear(z, kern, bias)
-        y = torch.where(y >= 0, y, alpha * y)
-        qn = self.attn_q.normalize_flat(
-            y[..., :e * nh].reshape(b, f * nh * e), self.seg_k, f, nh, e)
-        kn = self.attn_k.normalize_flat(
-            y[..., e * nh:2 * e * nh].reshape(b, f * nh * e), self.seg_k,
-            f, nh, e)
-        vn = self.attn_v.normalize_flat(
-            y[..., 2 * e * nh:].reshape(b, f * nh * vd), self.seg_v,
-            f, nh, vd)
+        qn, kn, vn = flat_qkv_layer_norm(
+            y.reshape(b, f, -1), nh,
+            [(dim, p.act.weight, p.norm.weight, p.norm.bias, p.norm.eps)
+             for p, dim in zip(projs, (e, e, vd))])
         out = ring_attend_int8_native(
             qn, kn, vn, state["k_buf"], state["k_scale"], state["v_buf"],
             state["v_scale"], state["pos"], f=f, n_head=nh,

@@ -41,7 +41,7 @@ def test_one_nvcc_call_for_all_sources(fake_nvcc, tmp_path):
     is kept from the single call for all sources that this replaced)."""
     lib = _build.build()
     sources = sorted(str(p) for p in _build.CSRC.glob("*.cu"))
-    assert len(sources) == 3 and len(fake_nvcc) == len(sources) + 1
+    assert len(sources) == 4 and len(fake_nvcc) == len(sources) + 1
     compiles, link = fake_nvcc[:-1], fake_nvcc[-1]
     assert sorted(cmd[-1] for cmd in compiles) == sources
     for cmd in compiles:

@@ -759,3 +759,189 @@ def test_train_step_on_the_card_matches_the_cpu(dev, task_name):
     for n, g in g64.items():
         torch.testing.assert_close(
             gg[n], g, rtol=0, atol=1e-3 * max(g.abs().max().item(), floor))
+
+
+# ---- the flat LayerNorms (csrc/flat_norm.cu) -----------------------------
+
+# the default Net's constructor defaults (benchmark/configs/net_default.json)
+DEFAULT_NET = dict(embed_dim=256, stft_chunk_size=160, stft_pad_size=120,
+                   num_ch=2, D=64, L=0, I=1, J=1, B=6, H=128,
+                   local_atten_len=100, use_attn=False, lookahead=True,
+                   chunk_causal=False)
+
+
+def _flat_qkv(dev, b, dtype, seed, f=97, nh=4, e=6, vd=16):
+    """A fused projection y [b, f, 2*e*nh + vd*nh] before its PReLUs and
+    the three blocks' (dim, alpha, scale, bias, eps), on the CPU and on
+    the card (the flagship's geometry by default)."""
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn(b, f, 2 * e * nh + vd * nh, generator=g) * 0.7 + 0.1
+    parts = [(dim, torch.rand(1, generator=g) * 0.4,
+              1 + 0.3 * torch.randn(f * dim, generator=g),
+              0.2 * torch.randn(f * dim, generator=g), 1e-5)
+             for dim in (e, e, vd)]
+    cpu = (y.to(dtype), [(dim, *(t.to(dtype) for t in ts), eps)
+                         for dim, *ts, eps in parts])
+    gpu = (cpu[0].to(dev), [(dim, *(t.to(dev) for t in ts), eps)
+                            for dim, *ts, eps in cpu[1]])
+    return cpu, gpu
+
+
+def _close_flat(got, want):
+    """float32: the two sums' order, ~1e-6 at |out| <= ~5; bf16: the
+    output's one rounding may land one bf16 step (2^-7 relative) away."""
+    if want.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-2)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("b", [64, 1, 3])
+def test_flat_qkv_kernel_matches_plain(dev, dtype, b):
+    """The flagship's Q/K/V norms read from the fused projection y [B, 97,
+    112] where they lie, each block's PReLU folded in: one launch, each
+    block against the PReLU and `flat_head_layer_norm` on the CPU."""
+    from lookoncetohear_tpu_torch.ops.norms import (flat_norm_cuda,
+                                                    flat_qkv_layer_norm)
+    (y, parts), (yd, partsd) = _flat_qkv(dev, b, dtype, b)
+    before = flat_norm_cuda.launches
+    got = flat_qkv_layer_norm(yd, 4, partsd)
+    torch.cuda.synchronize()
+    assert flat_norm_cuda.launches == before + 1
+    for out, want in zip(got, flat_qkv_layer_norm(y, 4, parts)):
+        assert out.dtype == dtype and out.is_contiguous()
+        assert out.shape == want.shape
+        _close_flat(out.cpu(), want)
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (64 * 97, 64, torch.bfloat16), (64, 97 * 64, torch.bfloat16),
+    (64 * 141, 64, torch.float32), (97, 64, torch.bfloat16),
+    (3 * 97, 64, torch.float32), (3, 97 * 64, torch.float32),
+    (1, 97 * 64, torch.bfloat16), (5, 10, torch.float32)], ids=str)
+def test_flat_row_kernel_matches_plain(dev, rows, d, dtype):
+    """Whole-row norms at the serving shapes (the flagship's intra and
+    inter rows and attention output, the default Net's rows), at 1 and 3
+    streams, and a width 16 bytes do not divide: one launch each,
+    against the plain version on the card."""
+    from lookoncetohear_tpu_torch.ops.norms import (
+        flat_layer_norm, flat_layer_norm_reference, flat_norm_cuda)
+    g = torch.Generator().manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=g) * 1.3 - 0.4).to(dtype).to(dev)
+    sc = (1 + 0.3 * torch.randn(d, generator=g)).to(dtype).to(dev)
+    bi = (0.2 * torch.randn(d, generator=g)).to(dtype).to(dev)
+    before = flat_norm_cuda.launches
+    got = flat_layer_norm(x, sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    assert flat_norm_cuda.launches == before + 1
+    _close_flat(got, flat_layer_norm_reference(x, sc, bi, 1e-5))
+
+
+def test_flat_row_kernel_takes_strided_views(dev):
+    """Rows of a column-major view (copied first) and every other row of
+    a tensor (read in place), against the plain version."""
+    from lookoncetohear_tpu_torch.ops.norms import (
+        flat_layer_norm, flat_layer_norm_reference, flat_norm_cuda)
+    g = torch.Generator().manual_seed(11)
+    sc = (1 + 0.3 * torch.randn(64, generator=g)).to(dev)
+    bi = (0.2 * torch.randn(64, generator=g)).to(dev)
+    base = torch.randn(64, 2 * 97, generator=g).to(dev)
+    for x in (base[:, :97].t(), base.reshape(194, 64)[::2]):
+        before = flat_norm_cuda.launches
+        got = flat_layer_norm(x, sc, bi, 1e-5)
+        assert flat_norm_cuda.launches == before + 1
+        _close_flat(got, flat_layer_norm_reference(x, sc, bi, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_flat_norm_kernel_on_constant_rows(dev, dtype):
+    """A constant row: its variance is 0 up to rounding, clamped at 0, so
+    the output is the bias, as in the plain version; a constant segment
+    of a head norm likewise."""
+    from lookoncetohear_tpu_torch.ops.norms import (
+        flat_layer_norm, flat_layer_norm_reference, flat_qkv_layer_norm)
+    x = torch.full((4, 97 * 64), 0.10009765625, dtype=dtype, device=dev)
+    x[1] = -3.0
+    x[2] = 0.0
+    x[3, ::2] = 2.5                       # a live row beside them
+    g = torch.Generator().manual_seed(5)
+    sc = (1 + 0.3 * torch.randn(97 * 64, generator=g)).to(dtype).to(dev)
+    bi = (0.2 * torch.randn(97 * 64, generator=g)).to(dtype).to(dev)
+    got = flat_layer_norm(x, sc, bi, 1e-5)
+    want = flat_layer_norm_reference(x, sc, bi, 1e-5)
+    assert torch.isfinite(got).all()
+    _close_flat(got, want)
+    _close_flat(got[:3], bi.expand(3, -1))
+    (_, _), (yd, partsd) = _flat_qkv(dev, 2, dtype, 6)
+    yd[:, :, :6] = 0.75                   # head 0 of Q: a constant segment
+    q = flat_qkv_layer_norm(yd, 4, partsd)[0].reshape(2, 97, 4, 6)
+    bias_q = partsd[0][3].reshape(97, 6)
+    _close_flat(q[:, :, 0], bias_q.expand(2, -1, -1))
+
+
+def test_flat_norm_kernel_in_a_cuda_graph(dev):
+    """The Q/K/V launch and a row norm captured in a CUDA graph and
+    replayed on new inputs give the eager launches' bits."""
+    from lookoncetohear_tpu_torch.ops.norms import (flat_layer_norm,
+                                                    flat_qkv_layer_norm)
+    (_, _), (yd, partsd) = _flat_qkv(dev, 64, torch.bfloat16, 7)
+    x = torch.randn(64 * 97, 64, device=dev).bfloat16()
+    sc, bi = partsd[2][2][:64].contiguous(), partsd[2][3][:64].contiguous()
+
+    def run():
+        return flat_qkv_layer_norm(yd, 4, partsd) + [
+            flat_layer_norm(x, sc, bi, 1e-5)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed in (8, 9):
+        (_, _), (y2, _) = _flat_qkv(dev, 64, torch.bfloat16, seed)
+        yd.copy_(y2)
+        x.copy_(torch.randn(64 * 97, 64, device=dev).bfloat16())
+        graph.replay()
+        for a, b in zip(outs, run()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("streams", [2, 1])
+@pytest.mark.parametrize("config", ["flagship", "net_default"])
+def test_a_streaming_step_launches_twelve_flat_norms(dev, config, streams):
+    """An eager engine step launches the kernel 12 times: the flagship's
+    3 blocks x (Q/K/V, intra, inter, attention output) at bf16 with the
+    int8 ring, the default Net's 6 blocks x (intra, inter) at float32.
+    A graph replay runs no Python and counts nothing. At one stream the
+    intra norm's [F, C] input is a row-strided view of the frame."""
+    from lookoncetohear_tpu_torch.entry import FLAGSHIP
+    from lookoncetohear_tpu_torch.models.net import Net
+    from lookoncetohear_tpu_torch.ops.norms import flat_norm_cuda
+    from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
+    flagship = config == "flagship"
+    params = FLAGSHIP if flagship else DEFAULT_NET
+    torch.manual_seed(0)
+    net = Net(**params, device="cpu")
+    engs = [StreamingEngine(
+        net, max_streams=streams, dtype=torch.bfloat16 if flagship
+        else torch.float32, kv_dtype=torch.int8 if flagship else None,
+        cuda_graph=g) for g in (False, True)]
+    chunk = params["stft_chunk_size"]
+    x = torch.randn(4, streams, 2, chunk,
+                    generator=torch.Generator().manual_seed(0))
+    for eng in engs:
+        for s in range(streams):
+            eng.add_stream(s, np.ones(256, np.float32) / 16)
+        for i in range(2):          # the graph engine captures both graphs
+            eng.step(x[i])
+    eager, graph = engs
+    before = flat_norm_cuda.launches
+    eager.step(x[2])
+    assert flat_norm_cuda.launches == before + 12
+    graph.step(x[2])
+    assert flat_norm_cuda.launches == before + 12
+    assert torch.equal(graph.step(x[3]), eager.step(x[3]))

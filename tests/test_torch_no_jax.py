@@ -182,7 +182,8 @@ def test_chip_smoke_without_a_card_fails():
 def test_every_jax_module_has_its_port():
     """Each module of the JAX package has a module of the same path in
     the port, but for the two Pallas kernel files, whose kernels are
-    ported into lookoncetohear_tpu_torch/csrc/."""
+    ported into lookoncetohear_tpu_torch/csrc/ (beside the flat norms'
+    kernel, which replaces no Pallas kernel)."""
     def modules(pkg):
         return {str(p.relative_to(ROOT / pkg))
                 for p in (ROOT / pkg).rglob("*.py")}
@@ -191,7 +192,7 @@ def test_every_jax_module_has_its_port():
     assert missing == {"ops/pallas_attention.py", "ops/pallas_lstm.py"}
     assert sorted(p.name for p in (ROOT / "lookoncetohear_tpu_torch" /
                                    "csrc").glob("*.cu")) == [
-        "attn_step.cu", "bilstm_scan.cu", "ring_int8_step.cu"]
+        "attn_step.cu", "bilstm_scan.cu", "flat_norm.cu", "ring_int8_step.cu"]
 
 
 def test_dvector_cli_runs_with_jax_blocked(tmp_path):
