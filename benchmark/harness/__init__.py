@@ -1,3 +1,4 @@
-"""The general parts of the benchmark: loading a cell by its names, the
-seeded inputs and weights, the serving and training loops, the trace
-reader and the result line."""
+"""The general parts of the benchmark: loading a cell and what its names
+find, the seeded inputs and weights, one loop per traffic kind
+(`serve.py`, `train.py`, `offline.py`), the trace reader and the
+comparison."""

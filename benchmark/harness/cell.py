@@ -1,10 +1,15 @@
 """A cell of `BENCHMARK.json` and everything found by its names: the
-configuration's file, the traffic mix (`traffic/<traffic>.json`), the
-limits of its comparison (`limits/<workload>.json`), the per-layer
-metrics' readers (`metrics/<metric>.py`) and the table of peaks."""
+configuration's file and what it names (the port's `model` and `task`
+classes by dotted path, its plain `reference` and `train_reference`
+under `reference/`), the
+traffic mix (`traffic/<traffic>.json`) and the loop of its `kind`
+(`harness/<kind>.py`), the limits of its comparison
+(`limits/<workload>.json`), the per-layer metrics' readers
+(`metrics/<metric>.py`) and the table of peaks."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from dataclasses import dataclass, field
@@ -37,6 +42,35 @@ class Cell:
     @property
     def peak_bytes_s(self) -> float:
         return float(self.peaks["hbm_bytes_s"])
+
+    @property
+    def loop(self):
+        """The module of the traffic's `kind`: `harness/<kind>.py`, whose
+        `run` runs the cell and whose `controls` give its control's
+        readings."""
+        return importlib.import_module(
+            f"benchmark.harness.{self.traffic['kind']}")
+
+    @property
+    def reference(self):
+        """The configuration's plain reference (its `reference`)."""
+        return self.module("reference")
+
+    def module(self, key: str):
+        """The module of `reference/` the configuration names under
+        `key` ("reference"; "train_reference", the training steps): a
+        file of the repository, `benchmark/reference/<name>.py`."""
+        path = Path(self.config[key]).with_suffix("")
+        if path.parent != Path("benchmark/reference"):
+            raise ValueError(f"{self.config[key]}: a reference is a file "
+                             f"of benchmark/reference/")
+        return importlib.import_module(".".join(path.parts))
+
+    def named(self, key: str):
+        """The class the configuration names under `key` ("model",
+        "task") by its dotted path."""
+        module, _, name = self.config[key].rpartition(".")
+        return getattr(importlib.import_module(module), name)
 
 
 def applies(metric: dict, workload: str) -> bool:

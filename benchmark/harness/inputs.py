@@ -1,7 +1,8 @@
-"""Inputs drawn from `--seed`: the weights (on the device, in one draw),
-the serving cells' pool of binaural chunks and d-vectors (on the host,
-where a serving client holds its audio), and the training cells' pool
-of batches (on the device). Every seed gives the same sizes."""
+"""Inputs drawn from `--seed`: the weights of a reference's table (on the
+device, in one draw), the serving cells' pool of binaural chunks and
+d-vectors and the offline cells' pool of binaural scenes (on the host,
+where a client holds its audio), and the training cells' pool of
+batches (on the device). Every seed gives the same sizes."""
 
 from __future__ import annotations
 
@@ -10,8 +11,6 @@ import math
 import numpy as np
 import torch
 
-from benchmark.reference.tfgridnet import param_table
-
 SAMPLE_RATE = 16000
 
 
@@ -19,11 +18,11 @@ def seed64(seed: int) -> int:
     return int(seed) % 2 ** 64
 
 
-def weights(mp: dict, seed: int, device, dtype=torch.float32) -> dict:
-    """{name: tensor} of every weight of the reference's table, from one
-    uniform draw on `device` by a generator seeded with `seed`, in the
-    dtype the weights are served in."""
-    table = param_table(mp)
+def weights(table: list, seed: int, device, dtype=torch.float32) -> dict:
+    """{name: tensor} of every weight of a reference's `param_table`
+    ((name, shape, offset, scale) rows), from one uniform draw on
+    `device` by a generator seeded with `seed`, in the dtype the weights
+    are served in."""
     sizes = [math.prod(shape) for _, shape, _, _ in table]
     g = torch.Generator(device=device)
     g.manual_seed(seed64(seed))
@@ -89,7 +88,7 @@ def dvectors(seed: int, n: int, dim: int) -> np.ndarray:
 
 def train_batches(seed: int, n_batches: int, batch: int, seconds: float,
                   embed_dim: int, device) -> list:
-    """n_batches TSETask batches on `device`, every row different: a
+    """n_batches target-speech batches on `device`, every row different: a
     binaural target voice, the mixture of it with an interfering voice
     at -3 dB and noise, and the target's unit d-vector [B, 1, E]."""
     g = torch.Generator(device=device)
@@ -122,4 +121,22 @@ def train_batches(seed: int, n_batches: int, batch: int, seconds: float,
         out.append({"mixture": target + 0.7 * voice() + noise,
                     "target": target,
                     "embedding_gt": emb / emb.norm(dim=-1, keepdim=True)})
+    return out
+
+
+def enrollments(seed: int, lengths: list, mics: int) -> list:
+    """One seeded binaural scene [mics, length] float32 a length: the
+    enrolled voice alike on both ears (the wearer faces it), an
+    interfering voice at -3 dB with an interaural delay and level
+    difference, and a little white noise (as the serving pool and the
+    training batches mix them)."""
+    if mics != 2:
+        raise ValueError("the scenes are binaural")
+    rng = np.random.default_rng([seed64(seed), 5])
+    out = []
+    for n in lengths:
+        target = np.repeat(_voices(rng, 1, n), 2, axis=0)
+        other = binaural(rng, _voices(rng, 1, n))[0]
+        noise = 0.01 * rng.standard_normal((2, n))
+        out.append((target + 0.7 * other + noise).astype(np.float32))
     return out

@@ -23,25 +23,25 @@ import torch
 
 from benchmark.harness import compare, inputs
 from benchmark.harness.trace import capture
-from benchmark.reference.tfgridnet import Reference, dims
-from benchmark.reference.train import precision
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-# frames of the reference per block (bounds its memory)
-REF_FRAMES = 512
+def sampled(seed: int, tr: dict) -> np.ndarray:
+    """The streams the check compares, drawn from the seed."""
+    rng = np.random.default_rng([inputs.seed64(seed), 3])
+    return np.sort(rng.choice(tr["streams"], tr["sample_streams"],
+                              replace=False))
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device: str,
         t_proc: float) -> dict:
-    from lookoncetohear_tpu_torch.models.net import Net
     from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
 
-    tr, mp = cell.traffic, cell.config["model_params"]
-    d = dims(mp)
+    tr, mp, ref = cell.traffic, cell.config["model_params"], cell.reference
+    d = ref.dims(mp)
     dtype = getattr(torch, tr["dtype"])
     kv_dtype = torch.int8 if tr["kv_dtype"] == "int8" else None
     n, depth = tr["streams"], tr["depth"]
@@ -51,10 +51,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
         if cuda:
             torch.cuda.synchronize()
 
-    params = inputs.weights(mp, seed, device, dtype)
+    params = inputs.weights(ref.param_table(mp), seed, device, dtype)
     sync()
     t_weights = time.perf_counter()
-    net = Net(**mp, device=device)
+    net = cell.named("model")(**mp, device=device)
     net.load_state_dict(params)
     eng = StreamingEngine(net, max_streams=n, dtype=dtype,
                           kv_dtype=kv_dtype, device=device,
@@ -146,11 +146,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
     # the reference, for a sample of streams, from their first chunk
     y = np.stack(outputs, axis=1)              # [streams, frames, S, hop]
     frames = y.shape[1]
-    rng = np.random.default_rng([inputs.seed64(seed), 3])
-    sample = np.sort(rng.choice(n, tr["sample_streams"], replace=False))
-    ref = reference_outputs(mp, params, pool, emb, sample, frames,
-                            tr["kv_dtype"] == "int8", device)
-    gap = compare.chunk_error(y[sample], ref)
+    sample = sampled(seed, tr)
+    expect = ref.serve_outputs(mp, params, pool, emb, sample, frames,
+                               tr["kv_dtype"] == "int8", device)
+    gap = compare.chunk_error(y[sample], expect)
     log(f"reference {time.perf_counter() - t_ref:.1f} s over {frames} frames"
         f" of streams {sample.tolist()}")
     return {
@@ -168,28 +167,24 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
     }
 
 
-def reference_outputs(mp, params, pool, emb, sample, frames, kv_int8,
-                      device, mode="f32") -> np.ndarray:
-    """The reference's output of `frames` frames for the streams
-    `sample`: [len(sample), frames, S, hop]. The streams' audio is the
-    pool's chunks in the order the loop fed them: frame j is chunk j
-    followed by the lookahead of chunk j + 1."""
-    d = dims(mp)
-    hop, nfft = d["hop"], d["nfft"]
-    n_pool = len(pool)
-    idx = np.arange(frames + 1) % n_pool
-    x = pool[:, sample][idx]                   # [frames+1, s, M, hop]
-    x = torch.from_numpy(np.ascontiguousarray(
-        x.transpose(1, 2, 0, 3).reshape(len(sample), d["M"], -1))).to(device)
-    e = torch.from_numpy(emb[sample]).to(device)
-    p32 = {k: v.float() for k, v in params.items()}
-    out = []
-    with torch.no_grad(), precision(mode):
-        ref = Reference(mp, p32, mode=mode, kv_int8=kv_int8)
-        state = ref.init_state(len(sample))
-        for f0 in range(0, frames, REF_FRAMES):
-            f1 = min(frames, f0 + REF_FRAMES)
-            seg = x[..., f0 * hop:(f1 - 1) * hop + nfft]
-            out.append(ref.frames(seg, e, state).cpu())
-    y = torch.cat(out, dim=-1).numpy()             # [s, S, frames*hop]
-    return y.reshape(len(sample), d["S"], frames, hop).transpose(0, 2, 1, 3)
+def controls(cell, seed: int, mode: str, attempted: int,
+             device: str = "cuda") -> dict:
+    """{"control": the numbers the comparison reads} of the reference in
+    the precision `mode` put in the program's place, against the
+    reference, on the inputs of `seed` and the frames of a run that
+    compared `attempted` outputs (frames x streams)."""
+    tr, mp, ref = cell.traffic, cell.config["model_params"], cell.reference
+    d = ref.dims(mp)
+    n = tr["streams"]
+    frames = attempted // n
+    params = inputs.weights(ref.param_table(mp), seed, device,
+                            getattr(torch, tr["dtype"]))
+    pool = inputs.serve_pool(seed, n, d["M"], d["hop"], tr["pool_chunks"])
+    emb = inputs.dvectors(seed, n, d["E"])
+    sample = sampled(seed, tr)
+    int8 = tr["kv_dtype"] == "int8"
+    expect = ref.serve_outputs(mp, params, pool, emb, sample, frames, int8,
+                               device)
+    low = ref.serve_outputs(mp, params, pool, emb, sample, frames, int8,
+                            device, mode=mode)
+    return {"control": {"out_err": compare.chunk_error(low, expect)}}

@@ -1,5 +1,6 @@
-"""The training loop (traffic kind "train"): `Trainer.train_step` of a
-`TSETask` over a pool of seeded batches on the device.
+"""The training loop (traffic kind "train"): `Trainer.train_step` of the
+configuration's `task` (with its `model`) over a pool of seeded batches
+on the device.
 
 Set-up builds the task and the trainer (Adam, the configuration's clip),
 loads the weights drawn from the seed, and drives that one trainer
@@ -9,7 +10,8 @@ the first gradient as Adam holds it (its first moment over 1 - beta1)
 and the parameters after the last of them. The window then steps the
 same trainer on the pool in turn, `in_flight` steps queued at most,
 until `seconds` have passed. Once the window has closed and the trainer
-is freed, the reference takes the same steps from the same weights."""
+is freed, the configuration's `train_reference` (its `steps`) takes the
+same steps from the same weights."""
 
 from __future__ import annotations
 
@@ -23,9 +25,6 @@ import torch
 
 from benchmark.harness import compare, inputs
 from benchmark.harness.trace import capture
-from benchmark.reference import train as ref_train
-
-TASK_MODEL = "lookoncetohear_tpu_torch.models.net.Net"
 
 
 def log(msg: str) -> None:
@@ -34,7 +33,6 @@ def log(msg: str) -> None:
 
 def run(cell, seed: int, seconds: float, trace: bool, device: str,
         t_proc: float) -> dict:
-    from lookoncetohear_tpu_torch.train.tasks import TSETask
     from lookoncetohear_tpu_torch.train.trainer import ADAM_BETAS, Trainer
 
     tr, mp, opt = cell.traffic, cell.config["model_params"], \
@@ -46,15 +44,16 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
             torch.cuda.synchronize()
 
     marks = [("imports", time.perf_counter())]
-    task = TSETask(model=TASK_MODEL, model_params=dict(mp, remat=opt["remat"]),
-                   lr=opt["lr"])
+    task = cell.named("task")(model=cell.config["model"],
+                              model_params=dict(mp, remat=opt["remat"]),
+                              lr=opt["lr"])
     marks.append(("task", time.perf_counter()))
     run_dir = tempfile.TemporaryDirectory()
     trainer = Trainer(task, run_dir.name, grad_clip=opt["grad_clip"],
                       device=device)
     sync()
     marks.append(("trainer", time.perf_counter()))
-    params = inputs.weights(mp, seed, device)
+    params = inputs.weights(cell.reference.param_table(mp), seed, device)
     trainer.model.load_state_dict(params)
     batches = inputs.train_batches(seed, tr["pool_batches"], tr["batch"],
                                    tr["seconds_audio"], mp["embed_dim"],
@@ -128,19 +127,15 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
     run_dir.cleanup()
 
     t_ref = time.perf_counter()
-    ref = ref_train.steps(mp, params, batches[:n_check], opt["lr"],
-                          opt["grad_clip"])
-    keep = compare.moving(ref["grad_norms"])
+    expect = cell.module("train_reference").steps(
+        mp, params, batches[:n_check], opt["lr"], opt["grad_clip"])
     log(f"reference {time.perf_counter() - t_ref:.1f} s, {n_check} steps")
     audio_s = tr["batch"] * tr["seconds_audio"]
     return {
         "setup_s": setup_s,
         "e2e": {"train_audio_rate": audio_s * steps / window_s},
-        "checks": {
-            "loss_gap": compare.loss_gap(losses, ref["losses"]),
-            "grad_gap": compare.norm_gap(grads, ref["grad_norms"]),
-            "change_gap": compare.norm_gap(change, ref["change_norms"],
-                                           keep)},
+        "checks": readings(expect, {"losses": losses, "grad_norms": grads,
+                                    "change_norms": change}),
         "attempted": steps,
         "failed": failed,
         "memory_peak_bytes": memory_peak,
@@ -150,3 +145,36 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
                 "rows_per_step": tr["batch"]},
     }
 
+
+def readings(expect: dict, other: dict) -> dict:
+    """The numbers the comparison reads, of `other` against the
+    reference's `expect` (each {"losses", "grad_norms",
+    "change_norms"})."""
+    return {"loss_gap": compare.loss_gap(other["losses"], expect["losses"]),
+            "grad_gap": compare.norm_gap(other["grad_norms"],
+                                         expect["grad_norms"]),
+            "change_gap": compare.norm_gap(
+                other["change_norms"], expect["change_norms"],
+                compare.moving(expect["grad_norms"]))}
+
+
+def controls(cell, seed: int, mode: str, attempted: int,
+             device: str = "cuda") -> dict:
+    """The readings of the reference put in the program's place, on the
+    inputs of `seed`: in the precision `mode` ("control") and with half
+    of the batch left out, the mean taken over the rest
+    ("fault.half_batch"). A step that leaves the state unchanged reads 1
+    by the change's measure and needs no run."""
+    tr, mp, opt = cell.traffic, cell.config["model_params"], \
+        cell.config["train"]
+    steps = cell.module("train_reference").steps
+    params = inputs.weights(cell.reference.param_table(mp), seed, device)
+    batches = inputs.train_batches(seed, tr["pool_batches"], tr["batch"],
+                                   tr["seconds_audio"], mp["embed_dim"],
+                                   device)[:tr["check_steps"]]
+    args = (mp, params, batches, opt["lr"], opt["grad_clip"])
+    expect = steps(*args)
+    low = steps(*args, mode=mode)
+    half = steps(*args, rows=slice(0, tr["batch"] // 2))
+    return {"control": readings(expect, low),
+            "fault.half_batch": readings(expect, half)}

@@ -37,6 +37,10 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from benchmark.reference import precision
+
+# frames of the serving reference per block (bounds its memory)
+REF_FRAMES = 512
 # queries per einsum of the banded attention: bounds the gathered
 # window [rows, TQ, w-1, F*dim]
 ATTN_QUERIES = 128
@@ -354,3 +358,33 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
         out[..., j * hop:(j + t) * hop] = out[..., j * hop:(j + t) * hop] \
             + frames[..., j, :].reshape(*lead, t * hop)
     return out[..., :(t - 1) * hop + k]
+
+
+# -- the entry points of the loops (`benchmark/harness/<kind>.py`) --------
+
+def serve_outputs(mp, params, pool, emb, sample, frames, kv_int8,
+                  device, mode="f32") -> np.ndarray:
+    """The reference's output of `frames` frames for the streams
+    `sample`: [len(sample), frames, S, hop]. The streams' audio is the
+    pool's chunks in the order the loop fed them: frame j is chunk j
+    followed by the lookahead of chunk j + 1."""
+    d = dims(mp)
+    hop, nfft = d["hop"], d["nfft"]
+    n_pool = len(pool)
+    idx = np.arange(frames + 1) % n_pool
+    x = pool[:, sample][idx]                   # [frames+1, s, M, hop]
+    x = torch.from_numpy(np.ascontiguousarray(
+        x.transpose(1, 2, 0, 3).reshape(len(sample), d["M"], -1))).to(device)
+    e = torch.from_numpy(emb[sample]).to(device)
+    p32 = {k: v.float() for k, v in params.items()}
+    out = []
+    with torch.no_grad(), precision(mode):
+        ref = Reference(mp, p32, mode=mode, kv_int8=kv_int8)
+        state = ref.init_state(len(sample))
+        for f0 in range(0, frames, REF_FRAMES):
+            f1 = min(frames, f0 + REF_FRAMES)
+            seg = x[..., f0 * hop:(f1 - 1) * hop + nfft]
+            out.append(ref.frames(seg, e, state).cpu())
+    y = torch.cat(out, dim=-1).numpy()             # [s, S, frames*hop]
+    return y.reshape(len(sample), d["S"], frames, hop).transpose(0, 2, 1, 3)
+

@@ -7,30 +7,14 @@ it, and Adam (optax's defaults, written out)."""
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from benchmark.reference import precision
 from benchmark.reference.tfgridnet import Reference
 
 EPS = 1e-8
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
-
-
-@contextlib.contextmanager
-def precision(mode: str):
-    """TF32 on for "tf32", off otherwise, restored after."""
-    old = (torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    on = mode == "tf32"
-    torch.backends.cuda.matmul.allow_tf32 = on
-    torch.backends.cudnn.allow_tf32 = on
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = old
 
 
 def snr(pred, target):

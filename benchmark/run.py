@@ -25,8 +25,6 @@ from pathlib import Path  # noqa: E402
 
 # the top-level names the process may not hold once the window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "lookoncetohear_tpu")
-LOOPS = {"serve": "benchmark.harness.serve",
-           "train": "benchmark.harness.train"}
 
 
 def forbidden_modules() -> list:
@@ -36,17 +34,15 @@ def forbidden_modules() -> list:
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
              t_proc: float) -> dict:
-    """One run of `cell` on `device`; returns the result object."""
-    import importlib
-
+    """One run of `cell` on `device` by the loop of its traffic's kind
+    (`harness/<kind>.py`); returns the result object."""
     import torch
 
     from benchmark.harness.cell import reader, work
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    loop = importlib.import_module(LOOPS[cell.traffic["kind"]])
-    out = loop.run(cell, seed, seconds, trace, device, t_proc)
+    out = cell.loop.run(cell, seed, seconds, trace, device, t_proc)
     values = dict(out["e2e"], setup_s=out["setup_s"])
     metrics = {}
     if trace:

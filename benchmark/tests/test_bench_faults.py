@@ -3,7 +3,9 @@ the harness drives the program on the CPU at a small size (skipping
 only its look for a card), with one fault planted in the program. The
 faults a one-chip cell can have: a step that returns its state
 unchanged, half of the batch left out (the mean taken over the rest),
-an answer altered where it is produced."""
+an answer altered where it is produced (an offline call has no state:
+it can have the last two, half of its batch embedded and given to
+every clip)."""
 
 import time
 
@@ -12,6 +14,7 @@ import torch
 
 from benchmark.run import run_cell
 from benchmark.tests.conftest import tiny_cell
+from lookoncetohear_tpu_torch.models.net import EmbedNet
 from lookoncetohear_tpu_torch.serve.engine import StreamingEngine
 from lookoncetohear_tpu_torch.train.tasks import TSETask
 
@@ -67,3 +70,30 @@ def test_training_on_half_the_batch(workload, monkeypatch):
         return loss(self, half, epoch)
     monkeypatch.setattr(TSETask, "loss_and_metrics", broken)
     assert not run_tiny(workload)["correct"]
+
+
+def test_offline_answer_altered(monkeypatch):
+    """One entry of every d-vector moved by 1e-2, as it leaves the
+    model."""
+    forward = EmbedNet.forward
+
+    def broken(self, x):
+        y = forward(self, x).clone()
+        y[:, 0] += 1e-2
+        return y
+    monkeypatch.setattr(EmbedNet, "forward", broken)
+    r = run_tiny("embed.enroll4x5s")
+    assert r["checks"]["dvec_err"]["value"] > 9e-3
+    assert not r["correct"]
+
+
+def test_offline_half_batch_left_out(monkeypatch):
+    """The first half of each call's clips embedded, and their d-vectors
+    given to the other half."""
+    forward = EmbedNet.forward
+
+    def broken(self, x):
+        half = forward(self, x[:x.shape[0] // 2])
+        return torch.cat([half, half])
+    monkeypatch.setattr(EmbedNet, "forward", broken)
+    assert not run_tiny("embed.enroll4x5s")["correct"]

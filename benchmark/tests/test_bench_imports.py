@@ -4,6 +4,7 @@ top-level module names (the port's name begins with the JAX
 package's)."""
 
 import ast
+import re
 import subprocess
 import sys
 
@@ -43,6 +44,31 @@ def test_the_reference_imports_nothing_of_the_program(path):
                     "benchmark"}
 
 
+def class_names(*paths):
+    return {node.name for path in paths
+            for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.ClassDef)}
+
+
+# what a configuration names: the port's model and task classes, and the
+# modules of reference/
+NAMED = class_names(*sorted((REPO / PORT / "models").glob("*.py")),
+                    REPO / PORT / "train" / "tasks.py")
+REFERENCES = {p.stem for p in BENCH_DIR.joinpath("reference").glob("*.py")
+              if p.stem != "__init__"}
+
+
+@pytest.mark.parametrize("path", sources("harness") + [BENCH_DIR / "run.py"],
+                         ids=lambda p: p.name)
+def test_the_harness_names_no_model_task_or_reference(path):
+    """The loops and the runner find the model, the task and the
+    reference by the configuration's names: none is written in them."""
+    text = path.read_text()
+    assert {"Net", "TSETask", "EmbedNet"} <= NAMED
+    assert not set(re.findall(r"\w+", text)) & NAMED
+    assert not set(re.findall(r"reference[./](\w+)", text)) & REFERENCES
+
+
 def loaded_after(code):
     out = subprocess.run(
         [sys.executable, "-c", code + "\nimport sys\nprint(sorted({m.split("
@@ -58,7 +84,8 @@ def test_a_run_loads_no_jax():
         "import time\n"
         "from benchmark.tests.conftest import tiny_cell\n"
         "from benchmark.run import run_cell, forbidden_modules\n"
-        "for w in ('flagship.serve64', 'flagship.train8x5s'):\n"
+        "for w in ('flagship.serve64', 'flagship.train8x5s',\n"
+        "          'embed.enroll4x5s'):\n"
         "    run_cell(tiny_cell(w), 5, 0.2, False, 'cpu',\n"
         "             time.perf_counter())\n"
         "assert not forbidden_modules()")
@@ -67,5 +94,6 @@ def test_a_run_loads_no_jax():
 
 def test_the_reference_loads_no_program():
     loaded = loaded_after("import benchmark.reference.train, "
-                          "benchmark.reference.tfgridnet")
+                          "benchmark.reference.tfgridnet, "
+                          "benchmark.reference.offline_tfgridnet")
     assert not loaded & (JAX | {PORT})

@@ -64,13 +64,21 @@ def test_end_to_end_metrics(manifest):
 
 @pytest.mark.parametrize("workload", [
     "flagship.serve64", "net_default.train8x5s", "net_default.serve64",
-    "flagship.train8x5s"])
+    "flagship.train8x5s", "embed.enroll4x5s"])
 def test_cell_files_and_metrics(manifest, workload):
     cell = load_cell(MANIFEST, workload)
     kinds = {"serve": {"rt_streams", "chunk_p95_ms"},
-             "train": {"train_audio_rate"}}[cell.traffic["kind"]]
+             "train": {"train_audio_rate"},
+             "offline": {"offline_audio_rate"}}[cell.traffic["kind"]]
     e2e = {m["name"] for m in cell.end_to_end}
     assert e2e == kinds | {"setup_s"}
+    # the loop of the kind, the classes and the reference it calls
+    assert callable(cell.loop.run) and callable(cell.loop.controls)
+    assert isinstance(cell.named("model"), type)
+    if cell.traffic["kind"] == "train":
+        assert isinstance(cell.named("task"), type)
+        assert callable(cell.module("train_reference").steps)
+    assert callable(cell.reference.param_table)
     assert cell.per_layer
     for m in cell.per_layer:
         assert (BENCH_DIR / "metrics" / f"{m['name']}.py").is_file()
@@ -92,7 +100,8 @@ def test_config_files_under_paths(manifest):
 
 def test_configs_are_the_published_ones():
     """Uncut: the flagship is configs/tsh.json's model_params, the
-    default Net is `Net.__init__`'s defaults (`reduced` is empty)."""
+    default Net is `Net.__init__`'s defaults, the enrollment net is
+    configs/embed.json's model_params (`reduced` is empty)."""
     from lookoncetohear_tpu_torch.entry import FLAGSHIP
     from lookoncetohear_tpu_torch.models.net import Net
     flagship = json.loads((BENCH_DIR / "configs" / "flagship.json")
@@ -103,3 +112,7 @@ def test_configs_are_the_published_ones():
     sig = inspect.signature(Net.__init__).parameters
     for k, v in default["model_params"].items():
         assert sig[k].default == v, k
+    embed = json.loads((BENCH_DIR / "configs" / "embed.json").read_text())
+    published = json.loads((REPO / "configs" / "embed.json").read_text())
+    assert embed["model_params"] == \
+        published["pl_module_args"]["model_params"]

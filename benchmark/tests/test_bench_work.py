@@ -10,10 +10,10 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark.harness import inputs
-from benchmark.harness.cell import work
-from benchmark.reference.tfgridnet import Reference, dims
-from benchmark.tests.conftest import MANIFEST, TINY_MODEL
-from benchmark.harness.cell import load_cell
+from benchmark.harness.cell import load_cell, work
+from benchmark.reference import offline_tfgridnet
+from benchmark.reference.tfgridnet import Reference, dims, param_table
+from benchmark.tests.conftest import MANIFEST, TINY_EMBED, TINY_MODEL
 
 
 def test_b2_by_hand():
@@ -45,7 +45,7 @@ def test_ring_int8_by_hand():
 
 def _flops(mp, frames, rows):
     d = dims(mp)
-    params = inputs.weights(mp, 0, "cpu")
+    params = inputs.weights(param_table(mp), 0, "cpu")
     ref = Reference(mp, params, loop_lstm=True)
     x = torch.zeros(rows, d["M"], (frames - 1) * d["hop"] + d["nfft"])
     with FlopCounterMode(display=False) as counter, torch.no_grad():
@@ -73,3 +73,37 @@ def test_model_operations_at_the_flagship_step():
     assert 3e9 < ops < 6e9
     assert math.isclose(work("model_step").per_call(mp),
                         2 * 256 * 64 * 97)
+
+
+@pytest.mark.parametrize("tiny", [False, True], ids=["published", "tiny"])
+@pytest.mark.parametrize("samples", [1000, 2049])
+def test_embed_operations_match_the_flop_counter(tiny, samples):
+    """`work/embed_forward.py` against every product the flop counter
+    sees in the enrollment net's reference (the STFT is a DFT product
+    there), at the published sizes and the tiny ones."""
+    mp = dict(load_cell(MANIFEST, "embed.enroll4x5s").config["model_params"])
+    if tiny:
+        mp.update(TINY_EMBED)
+    params = inputs.weights(offline_tfgridnet.param_table(mp), 0, "cpu")
+    x = torch.randn(1, mp["num_ch"], samples,
+                    generator=torch.Generator().manual_seed(0))
+    with FlopCounterMode(display=False) as counter:
+        offline_tfgridnet.forward(mp, params, x)
+    assert counter.get_total_flops() == work("embed_forward").forward(
+        mp, samples)
+
+
+@pytest.mark.parametrize("seconds,frames,tflop,attention", [
+    (5, 1251, 0.255, 0.23), (35, 8751, 4.24, 0.68)], ids=["5s", "35s"])
+def test_embed_operations_by_length(seconds, frames, tflop, attention):
+    """A 5 s enrollment (1,251 frames) is ~0.255 TFLOP, 23% of it the T x
+    T attention's 37,440 T^2; a 35 s utterance ~4.24 TFLOP, 68% (counted
+    by hand from the shapes)."""
+    mp = load_cell(MANIFEST, "embed.enroll4x5s").config["model_params"]
+    w = work("embed_forward")
+    n = seconds * 16000
+    t = w.frames(mp, n)
+    assert t == frames
+    ops = w.forward(mp, n)
+    assert math.isclose(ops, tflop * 1e12, rel_tol=0.01)
+    assert math.isclose(37440 * t * t / ops, attention, abs_tol=0.01)
